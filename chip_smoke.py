@@ -5,18 +5,35 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from `xrslam_tpu_torch/csrc` (nvcc);
 3. holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes, and times both with CUDA events:
+   the main path's shapes, times both with CUDA events, and computes
+   each kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the card's peak rate for their type, both counted
+   as what this run's data needs):
    - K1 klt_level: a rendered 752x480 frame pair, 256 GFTT points, the
      4 forward levels and the level-0 backward pass; status equal on
      >= 99% of slots, positions within 1e-3 px on live slots;
-   - K2 reproj_gram: K=12, L=384, seeded inputs with a valid anchor
-     one-hot and ~1/4 of the landmarks masked; rtol/atol 1e-9 in
-     float64 and 1e-4 in float32 (summation order only);
+   - K2 reproj_gram, entry 1 (`gram.reproj_gram`): K=12, L=384, seeded
+     inputs with a valid anchor one-hot and ~1/4 of the landmarks
+     masked; rtol/atol 1e-9 in float64 and 1e-4 in float32 (summation
+     order only); K=32, L=2048 in float64 at 1e-9; two launches
+     bit-equal;
+   - K2, entry 2 (`gram.reproj_factor_gram`, the one `solver.assemble`
+     takes): a seeded K=12, L=384 window (`io.synthetic.reproj_window`:
+     ~1/4 of the landmarks masked, a few fixed, ~15% of the
+     observations missing) against `reproj_factor_gram_plain` and
+     against the autodiff composition (`reproj_residual_jac` +
+     `cauchy_weights` + `reproj_gram_plain`), both rtol/atol 1e-9 in
+     float64; in float32 the kernel and the plain version are each held
+     against the float64 plain result, entry by entry in units of
+     eps * sum|term|, and the kernel may be at most 4x as far off as the
+     plain version; two launches bit-equal; landmarks at inverse depth 0
+     (the 1e-12 guard) within 1e-3 of their largest entry;
 4. drives the main path — a rendered 120-frame wave scene at EuRoC
    geometry (752x480, focal 458, 500 landmarks, seed 3) through
-   `api.XRSLAM` with IMU and images — once to warm up, then timed with
-   the kernel launch counts reset just before it; fails unless both
-   kernels launched, >= 60 frames tracked and ATE <= 0.25 m.
+   `api.XRSLAM` with IMU and images — once to warm up (40 frames), then
+   timed with the kernel launch counts reset just before it; fails
+   unless both kernels launched, the fused K2 entry among them, >= 60
+   frames tracked and ATE <= 0.25 m.
 
 The second-to-last lines are a JSON object {"kernels": [...]} and the
 nvidia-smi line; the last line is
@@ -39,6 +56,30 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_FRAMES = 120  # the JAX records' bench scene length
+WARM_FRAMES = 40
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
+# device memory rate, float32 outside the tensor cores, and float64
+# outside the tensor cores (half the float32 rate).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 33.5e12}
+
+# Operations per observation, counted from the kernels' arithmetic:
+# the Gram stage adds (21 + 6) entries of 4 operations, the 6 + 2
+# landmark entries of 3, for every observation, and (36 + 21 + 6)
+# entries of 4 plus 6 of 4 for those of an unmasked landmark; the
+# factor stage is 10 quaternion rotations of 30, the tangent basis,
+# the projection, its two derivative rows and the Cauchy weight.
+GRAM_FLOPS_ALL = 27 * 4 + 8 * 3
+GRAM_FLOPS_ANCHORED = 63 * 4 + 6 * 4
+FACTOR_FLOPS = 490
+# K1: a bilinear tap (7), the difference and two multiply-adds (5) per
+# window pixel and LK step; three sampled windows per point up front.
+KLT_FLOPS_PER_TAP = 12
+# The float32 fused kernel may be this many times as far from the
+# float64 result as the float32 plain version is (both in units of
+# eps * sum|term|, `gram.rounding_ratios`): another summation order.
+F32_ROUNDING_FACTOR = 4.0
 
 
 def fail(msg: str) -> None:
@@ -70,6 +111,64 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Milliseconds per call of fn() with the host taken out: `calls`
+    calls captured into a CUDA graph, replayed `reps` times. A wrapper
+    that allocates or synchronises inside its C call, or launches off
+    the current stream, cannot be captured, and the run fails."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as e:
+        fail(f"CUDA-graph capture of a kernel wrapper was refused: {e}")
+    return cuda_ms(g.replay, reps=reps) / calls
+
+
+def bound(n_bytes: float, flops: float, itemsize: int) -> dict:
+    """The least time the card could take: bytes over the memory rate
+    against operations over the peak rate of their type."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FLOPS[itemsize] * 1e3
+    return {"bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f
+            else "operations", "bytes": n_bytes, "flops": flops}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_close(what: str, names, ref, out, tol: float) -> float:
+    """Fail unless |out - ref| <= tol + tol*|ref| elementwise. Returns
+    the largest |out - ref|."""
+    err = 0.0
+    for n, a, b in zip(names, ref, out):
+        if a.shape != b.shape:
+            fail(f"{what} {n}: shape {tuple(b.shape)} != {tuple(a.shape)}")
+        if a.numel() == 0:
+            continue
+        d = (b - a).abs()
+        err = max(err, float(d.max()))
+        if not bool((d <= tol + tol * a.abs()).all()):
+            fail(f"{what} {n} disagrees: max |Δ| {float(d.max()):.3e}, "
+                 f"max |ref| {float(a.abs().max()):.3e}")
+    return err
+
+
+def check_repeat(what: str, fn) -> None:
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{what}: two launches on the same inputs differ")
 
 
 def klt_phase(dev) -> dict:
@@ -106,11 +205,13 @@ def klt_phase(dev) -> dict:
     calls.append(((pyrs[1][0], ix, iy, pyrs[0][0], guess, pts, v),
                   dict(win=21, iters=30, eps=0.01, final=True, search=32)))
 
-    worst_agree, max_err = 1.0, 0.0
+    worst_agree, max_err, steps = 1.0, 0.0, []
     for args, kw in calls:
         ref = klt.track_level_plain(*args, **kw)
-        out = klt.track_level_cuda(*args, **kw)
+        n_steps = torch.empty(pts.shape[0], dtype=torch.int32, device=dev)
+        out = klt.track_level_cuda(*args, **kw, steps_out=n_steps)
         torch.cuda.synchronize()
+        steps.append(int(n_steps.sum()))
         agree = float((out[1] == ref[1]).float().mean())
         live = out[1] & ref[1]
         err = float((out[0] - ref[0]).abs()[live].max()) if bool(live.any()) else 0.0
@@ -130,49 +231,198 @@ def klt_phase(dev) -> dict:
     ms2 = cuda_ms(run(klt.track_level_cuda))
     print(f"K1 time per frame (5 launches, 256 points): kernel {ms:.4f} / "
           f"{ms2:.4f} ms, plain {plain_ms:.4f} / {plain_ms2:.4f} ms", flush=True)
+    # bound of the 5 calls. Bytes: what the function needs, so per image
+    # the smaller of the whole image and the points' windows (the three
+    # (win+1)^2 blocks of the previous image and its gradients, the
+    # search^2 block of the next image), plus points, guesses, validity
+    # and the outputs. Operations: at the LK steps this run's points took
+    # (the kernel reports them), not at the 30-step ceiling.
+    n_pts = pts.shape[0]
+    moved = flops = 0
+    for (a, k), n_steps in zip(calls, steps):
+        img_bytes = nbytes(a[0])
+        moved += 3 * min(img_bytes, n_pts * (k["win"] + 1) ** 2 * 4)
+        moved += min(img_bytes, n_pts * k["search"] ** 2 * 4)
+        moved += nbytes(*a[4:]) + n_pts * (2 * 4 + 1 + 4)
+        flops += k["win"] ** 2 * (n_steps * KLT_FLOPS_PER_TAP + n_pts * 21)
+    bnd = bound(moved, flops, 4)
+    print(f"K1 bound: {bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']} "
+          f"({moved / 1e6:.2f} MB; {flops / 1e9:.4f} GFLOP at the "
+          f"{sum(steps)} LK steps taken, {sum(steps) / (len(calls) * n_pts):.2f} "
+          f"per point and launch of at most 30)", flush=True)
     return {"max_abs_err": max_err, "ms": (ms + ms2) / 2,
-            "plain_ms": (plain_ms + plain_ms2) / 2, "status_agreement": worst_agree}
+            "plain_ms": (plain_ms + plain_ms2) / 2, "status_agreement": worst_agree,
+            "lk_steps": steps, **bnd}
+
+
+GRAM_NAMES = ["P", "b6", "Hll", "Hfl6", "bl"]
+
+
+def gram_inputs(K: int, L: int, seed: int, dt, dev):
+    """Seeded entry-1 inputs with a valid anchor one-hot and ~1/4 of
+    the landmarks masked."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    mask = rng.uniform(size=L) > 0.25
+    R1 = np.eye(K)[rng.integers(0, K, L)] * mask[:, None]
+    host = [rng.normal(0, 0.1, (K, L, 2)), rng.normal(0, 0.1, (K, L, 2, 6)),
+            rng.normal(0, 0.1, (K, L, 2, 6)), rng.normal(0, 0.1, (K, L, 2)), R1]
+    return [torch.as_tensor(a, dtype=dt, device=dev) for a in host], int(mask.sum())
+
+
+def timed_pair(kernel_fn, plain_fn) -> dict:
+    """plain, kernel, kernel, plain (CUDA events around 20 calls each),
+    and the kernel with the host taken out."""
+    p1 = cuda_ms(plain_fn)
+    k1 = cuda_ms(kernel_fn, reps=100)
+    k2 = cuda_ms(kernel_fn, reps=100)
+    p2 = cuda_ms(plain_fn)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+            "device_ms": device_ms(kernel_fn)}
 
 
 def gram_phase(dev) -> dict:
-    """K2 against its plain version at K=12, L=384."""
+    """K2 entry 1 against its plain version at K=12, L=384 (float64 and
+    float32) and at K=32, L=2048 (float64)."""
     import torch
 
     from xrslam_tpu_torch.estimation import gram
 
-    K, L = 12, 384
-    rng = np.random.default_rng(1)
-    ref_idx = rng.integers(0, K, L)
-    mask = rng.uniform(size=L) > 0.25
-    R1 = np.eye(K)[ref_idx] * mask[:, None]
-    host = [rng.normal(0, 0.1, (K, L, 2)), rng.normal(0, 0.1, (K, L, 2, 6)),
-            rng.normal(0, 0.1, (K, L, 2, 6)), rng.normal(0, 0.1, (K, L, 2)), R1]
-    names = ["P", "b6", "Hll", "Hfl6", "bl"]
     res = {}
-    for dt, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
-        xs = [torch.as_tensor(a, dtype=dt, device=dev) for a in host]
+    for K, L, dt, tol in ((12, 384, torch.float64, 1e-9),
+                          (12, 384, torch.float32, 1e-4),
+                          (32, 2048, torch.float64, 1e-9)):
+        xs, n_ok = gram_inputs(K, L, 1, dt, dev)
         ref = gram.reproj_gram_plain(*xs)
         out = gram.reproj_gram_cuda(*xs)
         torch.cuda.synchronize()
-        err = 0.0
-        for n, a, b in zip(names, ref, out):
-            d = (b - a).abs()
-            err = max(err, float(d.max()))
-            if not bool((d <= tol + tol * a.abs()).all()):
-                fail(f"K2 {n} ({dt}) disagrees: max |Δ| {float(d.max()):.3e}")
-        print(f"K2 reproj_gram {str(dt)[6:]}: max |Δ| {err:.3e} "
-              f"(rtol/atol {tol:g})", flush=True)
-        res[str(dt)[6:]] = err
+        tag = f"K={K} L={L} {str(dt)[6:]}"
+        err = check_close(f"K2 entry 1 {tag}", GRAM_NAMES, ref, out, tol)
+        check_repeat(f"K2 entry 1 {tag}", lambda: gram.reproj_gram_cuda(*xs))
+        print(f"K2 reproj_gram {tag}: max |Δ| {err:.3e} (rtol/atol {tol:g}), "
+              f"repeat bit-equal, grid {gram.grid(K, L)}", flush=True)
+        one = {"max_abs_err": err, "grid": gram.grid(K, L)}
         if dt == torch.float64:
-            p1 = cuda_ms(lambda: gram.reproj_gram_plain(*xs))
-            k1 = cuda_ms(lambda: gram.reproj_gram_cuda(*xs))
-            p2 = cuda_ms(lambda: gram.reproj_gram_plain(*xs))
-            k2 = cuda_ms(lambda: gram.reproj_gram_cuda(*xs))
-            print(f"K2 time per call (K=12, L=384, f64): kernel {k1:.4f} / "
-                  f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms", flush=True)
-            res["ms"], res["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
-    return {"max_abs_err": res["float64"], "max_abs_err_f32": res["float32"],
-            "ms": res["ms"], "plain_ms": res["plain_ms"]}
+            one.update(timed_pair(lambda: gram.reproj_gram_cuda(*xs),
+                                  lambda: gram.reproj_gram_plain(*xs)))
+            one.update(bound(nbytes(*xs, *out),
+                             K * L * GRAM_FLOPS_ALL + K * n_ok * GRAM_FLOPS_ANCHORED,
+                             xs[0].element_size()))
+            print(f"K2 reproj_gram {tag} per call: kernel {one['ms']:.4f} ms "
+                  f"(device alone {one['device_ms']}), plain {one['plain_ms']:.4f} ms, "
+                  f"bound {one['bound_ms'] * 1e3:.3f} us by {one['bound_by']}",
+                  flush=True)
+        res[tag] = one
+    return res
+
+
+def factor_gram_phase(dev) -> dict:
+    """K2 entry 2 (the fused entry) at the main path's K=12, L=384
+    against its plain version and the autodiff composition."""
+    import torch
+
+    from xrslam_tpu_torch.estimation import factors, gram
+    from xrslam_tpu_torch.io.synthetic import reproj_window
+
+    def autodiff(state, data):
+        return gram.reproj_factor_gram_plain(state, data,
+                                             jac=factors.reproj_residual_jac)
+
+    K, L = 12, 384
+    names = GRAM_NAMES + ["cost"]
+    res = {"grid": gram.grid(K, L)}
+    for dt in (torch.float64, torch.float32):
+        state, data = reproj_window(K, L, seed=2, dtype=dt, device=dev)
+        out = gram.reproj_factor_gram_cuda(state, data)
+        plain = gram.reproj_factor_gram_plain(state, data)
+        torch.cuda.synchronize()
+        tag = str(dt)[6:]
+        check_repeat(f"K2 entry 2 {tag}",
+                     lambda: gram.reproj_factor_gram_cuda(state, data))
+        if dt == torch.float32:
+            # float32: kernel and plain version each against the float64
+            # plain result, in units of eps * sum|term| per entry
+            rk = gram.rounding_ratios(out, state, data)
+            rp = gram.rounding_ratios(plain, state, data)
+            res["rounding_f32"] = {n: {"kernel": a, "plain": b}
+                                   for n, a, b in zip(names, rk, rp)}
+            print("K2 reproj_factor_gram float32, largest |out - f64| / (eps * "
+                  "sum|term|) per output, kernel / plain: " + ", ".join(
+                      f"{n} {a:.2f} / {b:.2f}" for n, a, b in zip(names, rk, rp))
+                  + f" (limit {F32_ROUNDING_FACTOR:g} x max(plain, 1)), repeat "
+                  "bit-equal", flush=True)
+            for n, a, b in zip(names, rk, rp):
+                if not a <= F32_ROUNDING_FACTOR * max(b, 1.0):
+                    fail(f"K2 entry 2 float32 {n}: rounding ratio {a:.3g} against "
+                         f"the plain version's {b:.3g}")
+            continue
+        res["max_abs_err"] = check_close("K2 entry 2 float64 vs plain", names,
+                                         plain, out, 1e-9)
+        res["max_abs_err_autodiff"] = check_close(
+            "K2 entry 2 float64 vs autodiff", names, autodiff(state, data), out, 1e-9)
+        m = factors._active_mask(data)
+        res["active_observations"] = int(m.sum())
+        res["largest_entry"] = float(plain[0].abs().max())
+        print(f"K2 reproj_factor_gram float64: max |Δ| {res['max_abs_err']:.3e} vs "
+              f"plain, {res['max_abs_err_autodiff']:.3e} vs autodiff (rtol/atol "
+              f"1e-9; largest entry {res['largest_entry']:.3e}), repeat bit-equal, "
+              f"{res['active_observations']} active observations, grid "
+              f"{res['grid']} CTAs of 128 threads", flush=True)
+        res.update(timed_pair(lambda: gram.reproj_factor_gram_cuda(state, data),
+                              lambda: gram.reproj_factor_gram_plain(state, data)))
+        a1 = cuda_ms(lambda: autodiff(state, data), reps=5)
+        a2 = cuda_ms(lambda: autodiff(state, data), reps=5)
+        res["autodiff_ms"] = (a1 + a2) / 2
+        ins = (state.q, state.p, state.inv_depth, data.q_bc, data.p_bc,
+               data.bearings, data.obs_mask, data.ref_idx, data.sqrt_inv_cov2,
+               data.landmark_mask)
+        n_act = res["active_observations"]
+        res.update(bound(nbytes(*ins, *out),
+                         n_act * (FACTOR_FLOPS + GRAM_FLOPS_ALL + GRAM_FLOPS_ANCHORED)
+                         + (K * L - n_act) * 8 * 3, state.p.element_size()))
+        print(f"K2 reproj_factor_gram per call (K=12, L=384, f64): kernel "
+              f"{res['ms']:.4f} ms (device alone {res['device_ms']}), plain "
+              f"{res['plain_ms']:.4f} ms, autodiff composition "
+              f"{res['autodiff_ms']:.4f} ms, bound {res['bound_ms'] * 1e3:.3f} us "
+              f"by {res['bound_by']}", flush=True)
+    res["guard"] = guard_check(dev)
+    return res
+
+
+def guard_check(dev) -> dict:
+    """Entry 2 on landmarks at inverse depth 0 (the 1e-12 guard): their
+    Hll, bl and Hfl6 entries within 1e-3 of the largest such entry of
+    the plain version (the inverse-depth column is conditioned like
+    1e12 there), everything else at rtol/atol 1e-9."""
+    import torch
+
+    from xrslam_tpu_torch.estimation import gram
+    from xrslam_tpu_torch.io.synthetic import reproj_window
+
+    state, data = reproj_window(6, 48, seed=1, n_guard=3, dtype=torch.float64,
+                                device=dev)
+    out = gram.reproj_factor_gram_cuda(state, data)
+    ref = gram.reproj_factor_gram_plain(state, data)
+    torch.cuda.synchronize()
+    guard = (state.inv_depth == 0) & data.landmark_mask
+    res = {}
+    for n, a, b in zip(GRAM_NAMES + ["cost"], ref, out):
+        if n in ("Hll", "bl", "Hfl6"):
+            big = float(a[..., guard].abs().max())
+            d = float((b - a)[..., guard].abs().max())
+            res[n] = {"largest": big, "max_abs_err": d}
+            if not (bool(torch.isfinite(b).all()) and d <= 1e-3 * big):
+                fail(f"K2 entry 2 at the inverse-depth guard, {n}: max |Δ| "
+                     f"{d:.3e} on entries up to {big:.3e}")
+            a, b = a[..., ~guard], b[..., ~guard]
+        check_close("K2 entry 2 beside the guard", [n], [a], [b], 1e-9)
+    print("K2 reproj_factor_gram at the inverse-depth guard (3 landmarks, K=6, "
+          "L=48, f64), max |Δ| / largest entry: " + ", ".join(
+              f"{n} {v['max_abs_err']:.3e} / {v['largest']:.3e}"
+              for n, v in res.items()) + " (limit 1e-3 of the largest)", flush=True)
+    return res
 
 
 def drive_phase(dev, n_frames: int) -> dict:
@@ -187,26 +437,30 @@ def drive_phase(dev, n_frames: int) -> dict:
     seq = render_sequence(n_frames=n_frames, width=752, height=480, focal=458.0)
     print(f"rendered {n_frames} frames 752x480 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    warm = timed_run(api.XRSLAM(config=seq["config"], device=dev), seq, dev)
-    print(f"warm pass: {warm['frames_tracked']}/{n_frames} tracked, "
+    warm = timed_run(api.XRSLAM(config=seq["config"], device=dev), seq, dev,
+                     max_frames=WARM_FRAMES)
+    print(f"warm pass: {warm['frames_tracked']}/{WARM_FRAMES} tracked, "
           f"ATE {warm['ate_m']:.4f} m, {warm['frames_per_s']:.3f} frames/s",
           flush=True)
     build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     res = timed_run(api.XRSLAM(config=seq["config"], device=dev), seq, dev)
     res["launches"] = {k.name: k.launches for k in build.KERNELS}
+    res["entry_launches"] = dict(build.REPROJ_GRAM.entry_launches)
     res["peak_mem_mb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     res["warm_pass"] = {k: warm[k] for k in ("frames_tracked", "ate_m",
                                              "frames_per_s")}
     print(f"timed pass: {res['frames_tracked']}/{n_frames} tracked, ATE "
           f"{res['ate_m']:.4f} m, {res['frames_per_s']:.3f} frames/s "
-          f"({res['seconds']:.1f} s), launches {res['launches']}, peak "
-          f"{res['peak_mem_mb']:.0f} MiB", flush=True)
+          f"({res['seconds']:.1f} s), launches {res['launches']} (K2 by entry: "
+          f"{res['entry_launches']}), peak {res['peak_mem_mb']:.0f} MiB", flush=True)
     print("stage means (ms): " + json.dumps(
         {k: round(v, 2) for k, v in res["stage_ms"].items()}), flush=True)
     for k in build.KERNELS:
         if res["launches"][k.name] == 0:
             fail(f"kernel {k.name} was not launched by the main path")
+    if res["entry_launches"]["reproj_factor_gram_launch"] == 0:
+        fail("the main path did not launch the fused K2 entry")
     if res["frames_tracked"] < 60:
         fail(f"only {res['frames_tracked']} of {n_frames} frames tracked (< 60)")
     if not res["ate_m"] <= 0.25:
@@ -244,21 +498,32 @@ def main(argv=None) -> None:
           flush=True)
 
     k1 = klt_phase(dev)
-    k2 = gram_phase(dev)
+    k2_gram = gram_phase(dev)
+    k2 = factor_gram_phase(dev)
     drive = drive_phase(dev, N_FRAMES)
 
+    # one record per kernel; K2's is the fused entry (the main path's),
+    # with the entry-1 numbers at the same shape beside it
     kernels = []
     for k, r in ((build.KLT_LEVEL, k1), (build.REPROJ_GRAM, k2)):
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": drive["launches"][k.name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+    e1 = k2_gram["K=12 L=384 float64"]
+    kernels[1]["device_ms"] = k2["device_ms"]
+    kernels[1]["entry_launches"] = drive["entry_launches"]
+    kernels[1]["entry_reproj_gram"] = {
+        key: e1[key] for key in ("max_abs_err", "ms", "plain_ms", "device_ms",
+                                 "bound_ms", "bound_by")}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "build": {k: v for k, v in info.items()},
-                       "k1": k1, "k2": k2, "drive": drive,
+                       "k1": k1, "k2_reproj_gram": k2_gram,
+                       "k2_reproj_factor_gram": k2, "drive": drive,
                        "kernels": kernels}, f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,18 +9,22 @@ test skips without a CUDA device.
 
 Tolerances, both from summation order alone: K1 (float32) status equal
 on >= 99% of slots and positions within 1e-3 px on the slots live on
-both sides; K2 rtol = atol = 1e-9 in float64 and 1e-4 in float32.
+both sides; K2 rtol = atol = 1e-9 in float64 and 1e-4 in float32. The
+fused entry in float32 is judged against the float64 plain result,
+entry by entry in units of eps * sum|term| (`gram.rounding_ratios`): it
+may be at most 4x as far off as the float32 plain version is.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from xrslam_tpu_torch.estimation import gram
+from xrslam_tpu_torch.estimation import factors, gram
 from xrslam_tpu_torch.frontend import image as img_ops
 from xrslam_tpu_torch.frontend import klt
 from xrslam_tpu_torch.frontend.tracker import _preprocess_image
 from xrslam_tpu_torch.kernels import build
+from xrslam_tpu_torch.io.synthetic import reproj_window
 from xrslam_tpu_torch.tools.make_dataset import render_sequence
 
 pytestmark = pytest.mark.gpu
@@ -86,6 +90,14 @@ def test_klt_level_matches_plain(dev, pair):
     out = klt.track_level(*args, **KW, final=True, search=32)
     assert _agree(out, ref, "backward") > 50
     assert build.KLT_LEVEL.launches == before + 5
+    # the step count: none for a dead slot, 1..iters for a live one
+    steps = torch.full((pts.shape[0],), -1, dtype=torch.int32, device=dev)
+    out = klt.track_level_cuda(*args, **KW, final=True, search=32, steps_out=steps)
+    assert bool((steps[~v] == 0).all())
+    assert bool(((steps[out[1]] >= 1) & (steps[out[1]] <= KW["iters"])).all())
+    with pytest.raises(ValueError, match="steps_out"):
+        klt.track_level_cuda(*args, **KW, final=True, search=32,
+                             steps_out=steps.long())
 
 
 def test_klt_level_edges_and_empty(dev, pair):
@@ -150,34 +162,113 @@ def _check_gram(xs, tol):
     torch.cuda.synchronize()
     assert build.REPROJ_GRAM.launches == before + 1
     for n, a, b in zip(NAMES, ref, out):
+        assert b.shape == a.shape, n
         torch.testing.assert_close(b, a, rtol=tol, atol=tol, msg=n)
+    for a, b in zip(out, gram.reproj_gram(*xs)):
+        assert torch.equal(a, b), "two launches differ"
 
 
-@pytest.mark.parametrize("K,L", [(12, 384), (6, 130), (16, 9), (3, 1)],
-                         ids=["path", "ragged_tile", "smem_over_48k_f64", "one"])
-@pytest.mark.parametrize("dt,tol", [(torch.float64, 1e-9), (torch.float32, 1e-4)],
-                         ids=["f64", "f32"])
+SHAPES = [(12, 384), (32, 2048), (5, 7), (6, 130), (3, 1), (4, 0)]
+SHAPE_IDS = ["path", "large_window", "small", "ragged", "one", "no_landmarks"]
+DTYPES = [(torch.float64, 1e-9), (torch.float32, 1e-4)]
+
+
+@pytest.mark.parametrize("K,L", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("dt,tol", DTYPES, ids=["f64", "f32"])
 def test_reproj_gram_matches_plain(dev, K, L, dt, tol):
+    """Entry 1 against its plain version, and bit-equal on a repeat."""
     _check_gram(_gram_inputs(K, L, K * 1000 + L, dt, dev), tol)
 
 
 def test_reproj_gram_float32_large_window_and_strided_input(dev):
-    """K=32 in float32 (147 KB of shared memory), with Jt handed in as a
-    non-contiguous view."""
+    """K=32 in float32, with Jt handed in as a non-contiguous view and r
+    at an address that is not 16-byte aligned."""
     xs = _gram_inputs(32, 64, 7, torch.float32, dev)
     xs[1] = xs[1].permute(1, 0, 2, 3).contiguous().permute(1, 0, 2, 3)
     assert not xs[1].is_contiguous()
+    pad = torch.zeros(xs[0].numel() + 1, dtype=torch.float32, device=dev)
+    pad[1:] = xs[0].reshape(-1)
+    xs[0] = pad[1:].view(xs[0].shape)
+    assert xs[0].data_ptr() % 16 != 0
     _check_gram(xs, 1e-4)
 
 
+@pytest.mark.parametrize("K,L", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("dt,tol", DTYPES, ids=["f64", "f32"])
+def test_reproj_factor_gram_matches_plain(dev, K, L, dt, tol):
+    """Entry 2 against its plain version (and, in float64 on the small
+    windows, the autodiff composition), bit-equal on a repeat."""
+    state, data = reproj_window(K, L, seed=K * 1000 + L, dtype=dt, device=dev)
+    before = dict(build.REPROJ_GRAM.entry_launches)
+    out = gram.reproj_factor_gram(state, data)
+    torch.cuda.synchronize()
+    assert build.REPROJ_GRAM.entry_launches[gram.ENTRY_FACTOR] \
+        == before[gram.ENTRY_FACTOR] + 1
+    assert build.REPROJ_GRAM.entry_launches[gram.ENTRY_GRAM] \
+        == before[gram.ENTRY_GRAM]
+    refs = [gram.reproj_factor_gram_plain(state, data)]
+    for n, a, b in zip(NAMES + ["cost"], refs[0], out):
+        assert b.shape == a.shape, n
+    if dt == torch.float32:
+        rk = gram.rounding_ratios(out, state, data)
+        rp = gram.rounding_ratios(refs[0], state, data)
+        for n, a, b in zip(NAMES + ["cost"], rk, rp):
+            assert a <= 4.0 * max(b, 1.0), \
+                f"{n}: rounding ratio {a:.3g}, the plain version's {b:.3g}"
+        refs = []
+    elif 0 < K * L <= 12 * 384:  # vmap takes no empty batch
+        refs.append(gram.reproj_factor_gram_plain(
+            state, data, jac=factors.reproj_residual_jac))
+    for ref in refs:
+        for n, a, b in zip(NAMES + ["cost"], ref, out):
+            torch.testing.assert_close(b, a, rtol=tol, atol=tol, msg=n)
+    for a, b in zip(out, gram.reproj_factor_gram(state, data)):
+        assert torch.equal(a, b), "two launches differ"
+
+
+def test_reproj_factor_gram_inverse_depth_guard(dev):
+    """Landmarks at inverse depth 0 take the 1e-12 guard. The
+    inverse-depth Jacobian of a point 1e12 m away is conditioned like
+    1e12, so the Hll, bl and Hfl6 entries of those landmarks are held to
+    1e-3 of the largest such entry of the plain version (as the closed
+    form is held to autodiff there on the CPU); everything else at
+    rtol = atol = 1e-9."""
+    state, data = reproj_window(6, 48, seed=1, n_guard=3, dtype=torch.float64,
+                                device=dev)
+    out = gram.reproj_factor_gram(state, data)
+    ref = gram.reproj_factor_gram_plain(state, data)
+    guard = (state.inv_depth == 0) & data.landmark_mask
+    assert int(guard.sum()) == 3
+    for n, a, b in zip(NAMES + ["cost"], ref, out):
+        assert bool(torch.isfinite(b).all()), n
+        if n in ("Hll", "bl", "Hfl6"):
+            big = float(a[..., guard].abs().max())
+            assert big > 0, n
+            torch.testing.assert_close(b[..., guard], a[..., guard], rtol=0,
+                                       atol=1e-3 * big, msg=n)
+            a, b = a[..., ~guard], b[..., ~guard]
+        torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-9, msg=n)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev, pair):
-    with pytest.raises(ValueError, match="K <= 16"):
-        gram.reproj_gram(*_gram_inputs(17, 16, 0, torch.float64, dev))
+    with pytest.raises(ValueError, match="K <= 32"):
+        gram.reproj_gram(*_gram_inputs(33, 16, 0, torch.float64, dev))
     xs = _gram_inputs(4, 16, 0, torch.float64, dev)
     with pytest.raises(ValueError, match="dtype"):
         gram.reproj_gram(*xs[:1], xs[1].float(), *xs[2:])
     with pytest.raises(ValueError, match="must be on"):
         gram.reproj_gram(*xs[:4], xs[4].cpu())
+    with pytest.raises(ValueError, match="K <= 32"):
+        gram.reproj_factor_gram(*reproj_window(33, 16, device=dev))
+    state, data = reproj_window(4, 16, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        gram.reproj_factor_gram(state, data._replace(ref_idx=data.ref_idx.long()))
+    with pytest.raises(ValueError, match="dtype"):
+        gram.reproj_factor_gram(state, data._replace(bearings=data.bearings.float()))
+    with pytest.raises(ValueError, match="must be on"):
+        gram.reproj_factor_gram(state, data._replace(obs_mask=data.obs_mask.cpu()))
+    with pytest.raises(ValueError, match="must be"):
+        gram.reproj_factor_gram(state._replace(inv_depth=state.inv_depth[:-1]), data)
     pyrs, pts, ok = pair
     img = pyrs[0][0]
     with pytest.raises(ValueError, match="float32"):

@@ -64,20 +64,26 @@ class IMUBias:
 
 
 class XRSLAM:
-    """One VIO engine instance on `device` (a torch device: "cuda" or
-    "cpu"; there is no default, so nothing falls back to the CPU)."""
+    """One VIO engine instance on `device`, a torch device. It runs on
+    the card ("cuda") unless the caller asks for "cpu"; without a CUDA
+    device the default raises, nothing falls back to the CPU."""
 
     def __init__(self, slam_config_path: Optional[str] = None,
                  device_config_path: Optional[str] = None,
-                 config: Optional[Config] = None, *, device,
+                 config: Optional[Config] = None, *, device="cuda",
                  capacity: int = 256):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                'XRSLAM runs on a CUDA device by default and none is available; '
+                'pass device="cpu" to run on the CPU')
         if config is None:
             if slam_config_path and device_config_path:
                 config = load_config(slam_config_path, device_config_path)
             else:
                 config = Config()
         self.config = config
-        self.device = torch.device(device)
+        self.device = device
         self.times = StageTimes()
         self.pipeline = VIOPipeline(
             config, KLTFeatureTracker(config, self.device, capacity=capacity,

@@ -73,9 +73,9 @@ klt_level_kernel(const float* __restrict__ prev, const float* __restrict__ pix,
                  const float* __restrict__ pts, const float* __restrict__ guess,
                  const uint8_t* __restrict__ valid,
                  float* __restrict__ guess_out, uint8_t* __restrict__ valid_out,
-                 float* __restrict__ err_out, int H, int W, int win,
-                 int iters, float eps_sq, float min_eig_floor, int final_level,
-                 int search) {
+                 float* __restrict__ err_out, int* __restrict__ steps_out,
+                 int H, int W, int win, int iters, float eps_sq,
+                 float min_eig_floor, int final_level, int search) {
   extern __shared__ float smem[];
   float* S = smem;                     // (search, search) block of next
   float* T = S + search * search;      // (win, win) template
@@ -136,7 +136,8 @@ klt_level_kernel(const float* __restrict__ prev, const float* __restrict__ pix,
   float lx = gx0 - static_cast<float>(cx);
   float ly = gy0 - static_cast<float>(cy);
   bool conv = !(cond_ok && inb0 && ok_in);
-  for (int it = 0; it < iters && !conv; ++it) {
+  int steps = 0;  // LK steps this point took (reported for the bound)
+  for (; steps < iters && !conv; ++steps) {
     const float wx = fminf(fmaxf(lx - r, 0.f), lmax);
     const float wy = fminf(fmaxf(ly - r, 0.f), lmax);
     const int jx = static_cast<int>(floorf(wx));
@@ -182,6 +183,7 @@ klt_level_kernel(const float* __restrict__ prev, const float* __restrict__ pix,
     guess_out[2 * n + 1] = use ? ly + static_cast<float>(cy) : gy0;
     valid_out[n] = (final_level ? use : ok_in) ? 1 : 0;
     err_out[n] = err;
+    if (steps_out != nullptr) steps_out[n] = steps;
   }
 }
 
@@ -191,8 +193,9 @@ extern "C" int klt_level_launch(const void* prev, const void* pix,
                                 const void* piy, const void* next,
                                 const void* pts, const void* guess,
                                 const void* valid, void* guess_out,
-                                void* valid_out, void* err_out, int n_points,
-                                int H, int W, int win, int iters, float eps_sq,
+                                void* valid_out, void* err_out,
+                                void* steps_out, int n_points, int H, int W,
+                                int win, int iters, float eps_sq,
                                 float min_eig_floor, int final_level,
                                 int search, void* stream) {
   if (n_points == 0) return 0;
@@ -204,7 +207,8 @@ extern "C" int klt_level_launch(const void* prev, const void* pix,
       static_cast<const float*>(piy), static_cast<const float*>(next),
       static_cast<const float*>(pts), static_cast<const float*>(guess),
       static_cast<const uint8_t*>(valid), static_cast<float*>(guess_out),
-      static_cast<uint8_t*>(valid_out), static_cast<float*>(err_out), H, W,
-      win, iters, eps_sq, min_eig_floor, final_level, search);
+      static_cast<uint8_t*>(valid_out), static_cast<float*>(err_out),
+      static_cast<int*>(steps_out), H, W, win, iters, eps_sq, min_eig_floor,
+      final_level, search);
   return static_cast<int>(cudaGetLastError());
 }

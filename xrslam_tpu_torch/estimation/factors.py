@@ -100,6 +100,61 @@ def reproj_residual_jac(state: WindowState, data: WindowData):
     return r, J[..., 0:6], J[..., 6:12], J[..., 12], m
 
 
+def reproj_residual_jac_closed(state: WindowState, data: WindowData):
+    """`reproj_residual_jac` in closed form: the same residual and the
+    chain rule of its retraction written out over the (K,L) batch, no
+    `torch.func`. It is the arithmetic of the fused kernel's factor
+    stage (csrc/reproj_gram.cu).
+
+    With a = R(q_bc[ref])·z_ref/d + p_bc[ref], x = R(q_ref)·a + p_ref,
+    y_c = R(q_t)ᵀ(x − p_t), y = R(q_bc[t])ᵀ(y_c − p_bc[t]), u = LTᵀ·y and
+    r = W2·(u[:2]/u[2]), every Jacobian row is a rotated copy of the row
+    h of ∂r/∂y (camera frame): A = R(q_bc[t])·h is the row against y_c,
+    G = R(q_t)·A against x, G_r = R(q_ref)ᵀ·G against a. Then
+    ∂r/∂θ_t = A × y_c, ∂r/∂p_t = −G, ∂r/∂θ_ref = −G_r × a, ∂r/∂p_ref = G
+    and ∂r/∂d = −G_r·(a − p_bc[ref])/d.
+    """
+    L = data.obs_mask.shape[1]
+    ref = data.ref_idx.long()
+    bearings = _safe_bearings(data)
+    invd_raw = state.inv_depth
+    invd = torch.where(
+        data.landmark_mask,
+        torch.where(torch.abs(invd_raw) < 1e-12, 1e-12, invd_raw), 1.0)
+    z_ref = bearings[ref, torch.arange(L, device=ref.device)]
+    q_ref = state.q[ref]
+    w = lie.quat_rotate(data.q_bc[ref], z_ref / invd[:, None])     # (L,3)
+    a = w + data.p_bc[ref]
+    x = lie.quat_rotate(q_ref, a) + state.p[ref]
+    q_t = state.q[:, None, :]
+    q_bt = data.q_bc[:, None, :]
+    y_c = lie.quat_rotate_inv(q_t, x[None] - state.p[:, None, :])  # (K,L,3)
+    y = lie.quat_rotate_inv(q_bt, y_c - data.p_bc[:, None, :])
+    b12 = lie.s2_tangential_basis(bearings)
+    b1, b2 = b12[..., 0], b12[..., 1]
+    u2 = torch.sum(bearings * y, dim=-1)
+    n0 = torch.sum(b1 * y, dim=-1) / u2
+    n1 = torch.sum(b2 * y, dim=-1) / u2
+    W = data.sqrt_inv_cov2[:, None]                                # (K,1,2,2)
+    r = torch.stack([W[..., 0, 0] * n0 + W[..., 0, 1] * n1,
+                     W[..., 1, 0] * n0 + W[..., 1, 1] * n1], dim=-1)
+    e0 = (b1 - n0[..., None] * bearings) / u2[..., None]
+    e1 = (b2 - n1[..., None] * bearings) / u2[..., None]
+    h = torch.stack([W[..., 0, 0, None] * e0 + W[..., 0, 1, None] * e1,
+                     W[..., 1, 0, None] * e0 + W[..., 1, 1, None] * e1],
+                    dim=-2)                                        # (K,L,2,3)
+    A = lie.quat_rotate(q_bt[..., None, :], h)
+    G = lie.quat_rotate(q_t[..., None, :], A)
+    Gr = lie.quat_rotate_inv(q_ref[None, :, None, :], G)
+    Jt = torch.cat([lie.cross(A, y_c[..., None, :]), -G], dim=-1)
+    Jr = torch.cat([-lie.cross(Gr, a[None, :, None, :]), G], dim=-1)
+    Jd = -torch.sum(Gr * (w / invd[:, None])[None, :, None, :], dim=-1)
+    m = _active_mask(data)
+    mf = m.to(r.dtype)
+    return (r * mf[..., None], Jt * mf[..., None, None],
+            Jr * mf[..., None, None], Jd * mf[..., None], m)
+
+
 def cauchy_weights(r: torch.Tensor, active: torch.Tensor):
     """IRLS weights for CauchyLoss(1.0): weight sqrt(1/(1+s)) and the
     robust cost 0.5·log(1+s) with s = ||r||²."""

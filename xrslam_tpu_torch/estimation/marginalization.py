@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from . import factors
-from .solver import _anchor_onehot, _preint_blocks
+from .gram import anchor_onehot
+from .solver import _preint_blocks
 from .window import ES_SIZE, MargPrior, WindowData, WindowState
 from ..utils.tree import tree_map
 
@@ -81,7 +82,7 @@ def marginalize_frame(state: WindowState, data: WindowData, victim: int = 0,
     Jt = Jt * msel[..., None, None]
     Jr6 = Jr6 * msel[..., None, None]
     Jd = Jd * msel[..., None]
-    R1 = _anchor_onehot(data, K, dt)
+    R1 = anchor_onehot(data, K, dt)
     ar = torch.arange(K, device=dev)
     P = torch.zeros((K, 6, K, 6), dtype=dt, device=dev)
     P[ar, :, ar, :] = torch.einsum("klri,klrj->kij", Jt, Jt)

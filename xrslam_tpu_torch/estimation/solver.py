@@ -3,11 +3,11 @@ explicit Schur complement over landmarks (port of
 `xrslam_tpu/estimation/solver.py`).
 
 Per iteration: residuals + Jacobian blocks per factor class
-(factors.py), the reprojection block of the normal equations through
-kernel K2 (gram.reproj_gram), scalar Schur elimination of the inverse
-depths, a Jacobi-scaled Cholesky solve of the reduced camera system,
-and LM's accept/reject — kept on the device with `torch.where`, so an
-iteration needs no host sync.
+(factors.py), the reprojection factors and their block of the normal
+equations in one call of kernel K2 (gram.reproj_factor_gram), scalar
+Schur elimination of the inverse depths, a Jacobi-scaled Cholesky solve
+of the reduced camera system, and LM's accept/reject — kept on the
+device with `torch.where`, so an iteration needs no host sync.
 """
 
 from __future__ import annotations
@@ -45,12 +45,6 @@ def _free_masks(data: WindowData, dtype):
     return f, flm
 
 
-def _anchor_onehot(data: WindowData, K: int, dtype):
-    """R1 (L,K): one-hot of each landmark's anchor frame, masked."""
-    R1 = torch.nn.functional.one_hot(data.ref_idx.long(), K).to(dtype)
-    return R1 * data.landmark_mask[:, None].to(dtype)
-
-
 def _preint_blocks(H, b, rp, Ji, Jj, K):
     """Scatter the preintegration factor blocks (entry j couples frames
     j-1 and j) into H (K,15,K,15) and b (K,15)."""
@@ -85,16 +79,8 @@ def assemble(state: WindowState, data: WindowData, opts: SolveOptions):
     cost = torch.zeros((), dtype=dt, device=dev)
 
     if opts.use_reproj:
-        r, Jt, Jr6, Jd, m = factors.reproj_residual_jac(state, data)
-        w, c = factors.cauchy_weights(r, m)
-        cost = cost + torch.sum(c)
-        wf = w[..., None]
-        r = r * wf
-        Jt = Jt * wf[..., None]
-        Jr6 = Jr6 * wf[..., None]
-        Jd = Jd * wf
-        P, b6, Hll_c, Hfl6, bl_c = gram.reproj_gram(
-            r, Jt, Jr6, Jd, _anchor_onehot(data, K, dt))
+        P, b6, Hll_c, Hfl6, bl_c, c = gram.reproj_factor_gram(state, data)
+        cost = cost + c
         H[:, 0:6, :, 0:6] += P
         b[:, 0:6] += b6
         Hfl[:, 0:6, :] += Hfl6

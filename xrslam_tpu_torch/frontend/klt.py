@@ -156,11 +156,19 @@ def _check_cuda_inputs(imgs, pts_prev, guess, valid, win, search):
 def track_level_cuda(prev_img, prev_ix, prev_iy, next_img, pts_prev, guess,
                      valid, win: int, iters: int, eps: float,
                      min_eig_floor: float = 1e-4, final: bool = False,
-                     search: int = SEARCH):
+                     search: int = SEARCH, steps_out=None):
     """Launch csrc/klt_level.cu: one CTA per point. Same contract as
-    `track_level_plain`."""
+    `track_level_plain`. `steps_out`, an (N,) int32 tensor on the card,
+    receives the number of LK steps each point took (a measurement
+    aid: the work the kernel did depends on it)."""
     imgs = (prev_img, prev_ix, prev_iy, next_img)
     _check_cuda_inputs(imgs, pts_prev, guess, valid, win, search)
+    if steps_out is not None and not (
+            steps_out.is_cuda and steps_out.device == guess.device
+            and steps_out.dtype == torch.int32 and steps_out.is_contiguous()
+            and tuple(steps_out.shape) == (pts_prev.shape[0],)):
+        raise ValueError("klt_level: steps_out must be a contiguous (N,) "
+                         f"int32 tensor on {guess.device}")
     H, W = prev_img.shape
     N = pts_prev.shape[0]
     imgs = tuple(x.contiguous() for x in imgs)
@@ -175,10 +183,11 @@ def track_level_cuda(prev_img, prev_ix, prev_iy, next_img, pts_prev, guess,
         imgs[0].data_ptr(), imgs[1].data_ptr(), imgs[2].data_ptr(),
         imgs[3].data_ptr(), pts_prev.data_ptr(), guess.data_ptr(),
         valid_u8.data_ptr(), g_out.data_ptr(), v_out.data_ptr(),
-        err.data_ptr(), N, H, W, win, iters, float(eps * eps),
+        err.data_ptr(), 0 if steps_out is None else steps_out.data_ptr(),
+        N, H, W, win, iters, float(eps * eps),
         float(min_eig_floor), 1 if final else 0, search, stream)
     kbuild.check(rc, "klt_level")
-    kbuild.KLT_LEVEL.launches += 1
+    kbuild.KLT_LEVEL.count()
     return g_out, v_out.to(torch.bool), err
 
 

@@ -1,6 +1,7 @@
 """Synthetic VIO scene: smooth analytic trajectory, landmark cloud and
 ideal IMU (port of `wave_scene` and `euler_consistent` from
-`xrslam_tpu/io/synthetic.py`).
+`xrslam_tpu/io/synthetic.py`), and `reproj_window`, a seeded window for
+the reprojection factors alone.
 
 Velocity, acceleration and body rate come from `torch.func.jacfwd` of
 the analytic pose, as the JAX package takes them from `jax.jacfwd`.
@@ -129,3 +130,69 @@ def euler_consistent(scene: Scene, noise=None) -> Scene:
         ps.append(p)
         vs.append(v)
     return scene._replace(q=torch.stack(qs), p=torch.stack(ps), v=torch.stack(vs))
+
+
+def reproj_window(K: int, L: int, seed: int = 0, n_guard: int = 0,
+                  dtype=torch.float64, device=None):
+    """A numpy-seeded (WindowState, WindowData) that exercises every
+    branch of the reprojection factors: K cameras along a line looking
+    at L points 3-8 m ahead, ~15% of the observations missing (their
+    bearings hold garbage), ~1/4 of the landmarks masked out, a few
+    held fixed, landmark l < K anchored at frame l and the rest at a
+    random observing frame, per-frame extrinsics and a non-diagonal
+    `sqrt_inv_cov2`, and a state perturbed off the truth. The first
+    `n_guard` valid landmarks get inverse depth 0 (the 1e-12 guard).
+    Preintegration and the prior are left empty."""
+    from ..estimation.window import WindowData, WindowState
+
+    rng = np.random.default_rng(seed)
+
+    def expmap(w):
+        return lie.expmap(torch.as_tensor(w, dtype=torch.float64)).numpy()
+
+    def rotate(q, v, inverse=False):
+        fn = lie.quat_rotate_inv if inverse else lie.quat_rotate
+        return fn(torch.as_tensor(q), torch.as_tensor(v)).numpy()
+
+    q = expmap(rng.normal(0, 0.08, (K, 3)))
+    p = np.stack([0.15 * np.arange(K), np.zeros(K), np.zeros(K)], 1) \
+        + rng.normal(0, 0.05, (K, 3))
+    q_bc = expmap(np.array([0.02, -0.01, 0.03]) + rng.normal(0, 0.01, (K, 3)))
+    p_bc = np.array([0.02, -0.01, 0.03]) + rng.normal(0, 0.005, (K, 3))
+    X = rng.uniform([-2.0, -2.0, 3.0], [2.0 + 0.15 * K, 2.0, 8.0], (L, 3))
+    x_b = rotate(q[:, None], X[None] - p[:, None], inverse=True)
+    x_c = rotate(q_bc[:, None], x_b - p_bc[:, None], inverse=True)   # (K,L,3)
+    rng_c = np.linalg.norm(x_c, axis=-1)
+    b = x_c / rng_c[..., None] + rng.normal(0, 1e-3, (K, L, 3))
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    obs = (rng.uniform(size=(K, L)) > 0.15) & (b[..., 2] > 0.2)
+    ref = np.zeros(L, np.int32)
+    for l in range(L):
+        if l < K:
+            obs[l, l] = True
+            ref[l] = l
+        elif obs[:, l].any():
+            ref[l] = rng.choice(np.nonzero(obs[:, l])[0])
+    lm = (obs.sum(0) >= 2) & (rng.uniform(size=L) > 0.25)
+    ref = np.where(lm, ref, 0).astype(np.int32)
+    b = np.where(obs[..., None], b, rng.normal(0, 1e3, (K, L, 3)))
+    invd = np.where(lm, 1.0 / rng_c[ref, np.arange(L)], 0.0) \
+        * (1 + rng.normal(0, 0.05, L))
+    invd[np.nonzero(lm)[0][:n_guard]] = 0.0
+    w2 = 458.0 * (np.eye(2) + rng.normal(0, 0.05, (K, 2, 2)))
+
+    def T(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
+    q_est = lie.quat_mul(torch.as_tensor(q),
+                         torch.as_tensor(expmap(rng.normal(0, 0.01, (K, 3)))))
+    state = WindowState.zeros(K, L, dtype=dtype, device=device)._replace(
+        q=T(q_est.numpy()), p=T(p + rng.normal(0, 0.02, (K, 3))),
+        inv_depth=T(invd))
+    data = WindowData.empty(K, L, dtype=dtype, device=device)._replace(
+        q_bc=T(q_bc), p_bc=T(p_bc), bearings=T(b), obs_mask=T(obs, torch.bool),
+        ref_idx=T(ref, torch.int32), sqrt_inv_cov2=T(w2),
+        frame_mask=T(np.ones(K, bool), torch.bool),
+        landmark_mask=T(lm, torch.bool),
+        fix_landmark=T(rng.uniform(size=L) < 0.05, torch.bool))
+    return state, data

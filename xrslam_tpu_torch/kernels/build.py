@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain
-C interface (no PyTorch headers, so the build takes seconds), loaded
-with `ctypes`. The build runs at first use, into
+`nvcc` compiles every `csrc/*.cu` (one process per source, started
+together) and links them into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), loaded with
+`ctypes`. The build runs at first use, into
 `xrslam_tpu_torch/_build/` (git-ignored), and is keyed by a hash of the
 sources, so an edited kernel is rebuilt and a cached build is reused.
 
-Each kernel has a `Kernel` record holding its C entry point and a
-plain-int launch counter that its wrapper increments at every launch.
+Each kernel has a `Kernel` record holding its C entry points and a
+plain-int launch counter that its wrappers increment at every launch
+(`count`); a kernel with several entries also keeps a count per entry.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,32 +34,42 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes (every entry returns cudaError_t)
 SIGNATURES = {
-    "klt_level_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
-    "reproj_gram_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _I, _P],
+    "klt_level_launch": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+    "reproj_gram_launch": [_P] * 14 + [_I, _I, _I, _I, _P],
+    "reproj_factor_gram_launch": [_P] * 19 + [_I, _I, _I, _I, _P],
 }
 
 
 class Kernel:
     """One hand-written kernel: its source, the Pallas kernel it
-    replaces and its launch count."""
+    replaces, its C entry points and its launch counts."""
 
-    def __init__(self, name: str, entry: str, source: str, replaces: str):
+    def __init__(self, name: str, entries, source: str, replaces: str):
         self.name = name
-        self.entry = entry
+        self.entries = tuple(entries)
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.entry_launches = {e: 0 for e in self.entries}
 
-    def fn(self):
-        return getattr(load_library(), self.entry)
+    def fn(self, entry: Optional[str] = None):
+        return getattr(load_library(), entry or self.entries[0])
+
+    def count(self, entry: Optional[str] = None) -> None:
+        """One launch through `entry` (default: the first)."""
+        self.launches += 1
+        self.entry_launches[entry or self.entries[0]] += 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.entry_launches = {e: 0 for e in self.entries}
 
 
-KLT_LEVEL = Kernel("klt_level", "klt_level_launch",
+KLT_LEVEL = Kernel("klt_level", ("klt_level_launch",),
                    "xrslam_tpu_torch/csrc/klt_level.cu",
                    "xrslam_tpu/frontend/klt_pallas.py:150")
-REPROJ_GRAM = Kernel("reproj_gram", "reproj_gram_launch",
+REPROJ_GRAM = Kernel("reproj_gram",
+                     ("reproj_gram_launch", "reproj_factor_gram_launch"),
                      "xrslam_tpu_torch/csrc/reproj_gram.cu",
                      "xrslam_tpu/estimation/gram.py:182")
 KERNELS = (KLT_LEVEL, REPROJ_GRAM)
@@ -65,7 +77,7 @@ KERNELS = (KLT_LEVEL, REPROJ_GRAM)
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 class _Library:
@@ -113,16 +125,31 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     tmp = out + f".tmp{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    cus = [s for s in srcs if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for s, o in zip(cus, objs)]
+    logs = [p.communicate()[1] for p in procs]
+    try:
+        for s, p, log in zip(cus, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(s)} "
+                                   f"({p.returncode}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     _LIB.info = {"library": out, "cached": False, "seconds": dt,
-                 "nvcc": nvcc, "ptxas": proc.stderr}
+                 "nvcc": nvcc, "ptxas": "".join(logs)}
     return out
 
 

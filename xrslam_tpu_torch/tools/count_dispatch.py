@@ -1,0 +1,84 @@
+"""Count the ATen operations that one call of each solver stage
+dispatches (each is one kernel launch, or a few, on a CUDA device).
+
+    python -m xrslam_tpu_torch.tools.count_dispatch [--frames 6 --landmarks 64]
+                                                    [--device cpu|cuda]
+
+Counts with a `TorchDispatchMode`. The counts depend on the code path,
+not on the window's size; the path depends on the device: with
+`--device cuda`, `assemble` takes K2's fused kernel (one C call, which
+the mode does not see; its launches are listed beside the counts)
+where the CPU takes its plain version. Views and reshapes are
+dispatched but launch nothing, so a count is an upper bound on launches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..estimation import factors, gram, solver
+from ..io.synthetic import reproj_window
+from ..kernels import build
+
+
+class _Count(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count(fn) -> int:
+    with _Count() as c:
+        fn()
+    return c.n
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--landmarks", type=int, default=64)
+    ap.add_argument("--device", default="cpu")
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    state, data = reproj_window(args.frames, args.landmarks, seed=0, device=dev)
+    opts = solver.SolveOptions()
+    sys0 = solver.assemble(state, data, opts)
+    lam = torch.as_tensor(1e-4, dtype=state.p.dtype, device=dev)
+    r, Jt, Jr6, Jd, _ = factors.reproj_residual_jac_closed(state, data)
+    R1 = gram.anchor_onehot(data, args.frames, r.dtype)
+    build.reset_launch_counts()
+    n_assemble = count(lambda: solver.assemble(state, data, opts))
+    k2_calls = build.REPROJ_GRAM.launches
+    out = {
+        "reproj_residual_jac (autodiff)": count(
+            lambda: factors.reproj_residual_jac(state, data)),
+        "reproj_residual_jac_closed": count(
+            lambda: factors.reproj_residual_jac_closed(state, data)),
+        "reproj_gram_plain": count(lambda: gram.reproj_gram_plain(r, Jt, Jr6, Jd, R1)),
+        "reproj_factor_gram_plain": count(
+            lambda: gram.reproj_factor_gram_plain(state, data)),
+        "reproj_factor_gram (what assemble takes)": count(
+            lambda: gram.reproj_factor_gram(state, data)),
+        "preint_residual_jac": count(lambda: factors.preint_residual_jac(state, data)),
+        "marg_residual_jac": count(lambda: factors.marg_residual_jac(state, data)),
+        "assemble": n_assemble,
+        "_solve_from": count(lambda: solver._solve_from(sys0, state, lam)),
+        "solve_window (10 iterations)": count(
+            lambda: solver.solve_window(state, data, opts)),
+    }
+    print(json.dumps({"frames": args.frames, "landmarks": args.landmarks,
+                      "device": str(dev), "dispatched_ops": out,
+                      "k2_calls_per_assemble": k2_calls},
+                     indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -169,17 +169,19 @@ def ate(seq: dict, ts, ps) -> float:
     return traj.ate_rmse(ps[ia], seq["gt_p"][ib])
 
 
-def timed_run(slam, seq: dict, device) -> dict:
-    """Drive the port on `seq` and report frames tracked, ATE, frames/s
-    (host clock, ending in a device sync) and the per-stage means."""
+def timed_run(slam, seq: dict, device, max_frames=None) -> dict:
+    """Drive the port on `seq` (its first `max_frames` frames) and
+    report frames tracked, ATE, frames/s (host clock, ending in a device
+    sync) and the per-stage means."""
     from .. import api
 
     t0 = time.perf_counter()
-    ts, ps = run_sequence(api, slam, seq)
+    ts, ps = run_sequence(api, slam, seq, max_frames=max_frames)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    return {"frames": len(seq["t_cam"]), "frames_tracked": len(ts),
+    n = min(len(seq["t_cam"]), max_frames or len(seq["t_cam"]))
+    return {"frames": n, "frames_tracked": len(ts),
             "ate_m": ate(seq, ts, ps), "seconds": dt,
-            "frames_per_s": len(seq["t_cam"]) / dt,
+            "frames_per_s": n / dt,
             "stage_ms": {k: v * 1e3 for k, v in sorted(slam.times.means().items())}}
