@@ -9,9 +9,18 @@
    each kernel's bound (the larger of its bytes over 3.35 TB/s and its
    operations over the card's peak rate for their type, both counted
    as what this run's data needs):
-   - K1 klt_level: a rendered 752x480 frame pair, 256 GFTT points, the
-     4 forward levels and the level-0 backward pass; status equal on
-     >= 99% of slots, positions within 1e-3 px on live slots;
+   - K1 klt_level, entry 1 (`klt.track_level`, one level): a rendered
+     752x480 frame pair, 256 GFTT points, the 4 forward levels and the
+     level-0 backward pass; status equal on >= 99% of slots, positions
+     within 1e-3 px on live slots;
+   - K1, entry 2 (`klt.track_keypoints_cuda`, the main path's: the whole
+     forward + backward KLT of the pair in one launch) against
+     `track_keypoints_plain` on the same pair, with the same limits; two
+     launches bit-equal; timed beside the plain version and the
+     five-launch chain of entry 1 with its image-wide Scharr calls; the
+     longest chain of LK steps one point took and, from a second launch
+     at iters=1, the time of one step alone and the latency floor
+     (longest chain x one step);
    - K2 reproj_gram, entry 1 (`gram.reproj_gram`): K=12, L=384, seeded
      inputs with a valid anchor one-hot and ~1/4 of the landmarks
      masked; rtol/atol 1e-9 in float64 and 1e-4 in float32 (summation
@@ -32,8 +41,9 @@
    geometry (752x480, focal 458, 500 landmarks, seed 3) through
    `api.XRSLAM` with IMU and images — once to warm up (40 frames), then
    timed with the kernel launch counts reset just before it; fails
-   unless both kernels launched, the fused K2 entry among them, >= 60
-   frames tracked and ATE <= 0.25 m.
+   unless both kernels launched, the fused K2 entry among them, K1's
+   fused entry once per tracked frame pair and its entry 1 never, no
+   image-wide Scharr call, >= 60 frames tracked and ATE <= 0.25 m.
 
 The second-to-last lines are a JSON object {"kernels": [...]} and the
 nvidia-smi line; the last line is
@@ -45,6 +55,7 @@ the repository around this file; imports no jax.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -74,8 +85,13 @@ GRAM_FLOPS_ALL = 27 * 4 + 8 * 3
 GRAM_FLOPS_ANCHORED = 63 * 4 + 6 * 4
 FACTOR_FLOPS = 490
 # K1: a bilinear tap (7), the difference and two multiply-adds (5) per
-# window pixel and LK step; three sampled windows per point up front.
+# window pixel and LK step; three sampled windows per point up front
+# (7 each). The fused entry also filters each pass's (win+1)^2 sample
+# block: per pixel, x: three column smoothings (5) and a difference, y:
+# three row differences and a smoothing (5).
 KLT_FLOPS_PER_TAP = 12
+KLT_WINDOW_FLOPS = 21
+KLT_SCHARR_FLOPS = 24
 # The float32 fused kernel may be this many times as far from the
 # float64 result as the float32 plain version is (both in units of
 # eps * sum|term|, `gram.rounding_ratios`): another summation order.
@@ -162,6 +178,23 @@ def check_close(what: str, names, ref, out, tol: float) -> float:
     return err
 
 
+@contextlib.contextmanager
+def counting(module, name: str):
+    """Counts the calls of `module.name` while the block runs."""
+    fn = getattr(module, name)
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def check_repeat(what: str, fn) -> None:
     import torch
 
@@ -244,7 +277,7 @@ def klt_phase(dev) -> dict:
         moved += 3 * min(img_bytes, n_pts * (k["win"] + 1) ** 2 * 4)
         moved += min(img_bytes, n_pts * k["search"] ** 2 * 4)
         moved += nbytes(*a[4:]) + n_pts * (2 * 4 + 1 + 4)
-        flops += k["win"] ** 2 * (n_steps * KLT_FLOPS_PER_TAP + n_pts * 21)
+        flops += k["win"] ** 2 * (n_steps * KLT_FLOPS_PER_TAP + n_pts * KLT_WINDOW_FLOPS)
     bnd = bound(moved, flops, 4)
     print(f"K1 bound: {bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']} "
           f"({moved / 1e6:.2f} MB; {flops / 1e9:.4f} GFLOP at the "
@@ -253,6 +286,114 @@ def klt_phase(dev) -> dict:
     return {"max_abs_err": max_err, "ms": (ms + ms2) / 2,
             "plain_ms": (plain_ms + plain_ms2) / 2, "status_agreement": worst_agree,
             "lk_steps": steps, **bnd}
+
+
+def klt_track_phase(dev, width: int = 752, height: int = 480,
+                    focal: float = 458.0) -> dict:
+    """K1's fused entry against `track_keypoints_plain` on a rendered
+    frame pair, 256 GFTT points with perturbed seeds."""
+    import torch
+
+    from xrslam_tpu_torch.frontend import image as img_ops
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.frontend.tracker import _preprocess_image
+    from xrslam_tpu_torch.tools.make_dataset import render_sequence
+
+    seq = render_sequence(n_frames=2, width=width, height=height, focal=focal)
+    pyrs = [_preprocess_image(torch.from_numpy(im).to(dev), 6.0, 8, 8, 3)
+            for im in seq["images"]]
+    cand, _, ok = img_ops.gftt_candidates(pyrs[0][0], max_candidates=256)
+    pts = cand.contiguous()
+    rng = np.random.default_rng(0)
+    init = pts + torch.as_tensor(rng.normal(0, 1.5, tuple(pts.shape)),
+                                 dtype=torch.float32, device=dev)
+    args = (pyrs[0], pyrs[1], pts, init, ok)
+    win, iters, levels, n_pts = 21, 30, len(pyrs[0]), pts.shape[0]
+
+    ref = klt.track_keypoints_plain(*args)
+    steps = torch.zeros((n_pts, levels + 1), dtype=torch.int32, device=dev)
+    out = klt.track_keypoints_cuda(*args, steps_out=steps)
+    torch.cuda.synchronize()
+    agree = float((out[1] == ref[1]).float().mean())
+    live = out[1] & ref[1]
+    err = float((out[0] - ref[0]).abs()[live].max()) if bool(live.any()) else 0.0
+    check_repeat("K1 fused entry", lambda: klt.track_keypoints_cuda(*args))
+    print(f"K1 klt_track (fused) {width}x{height}: status agreement {agree:.4f} "
+          f"(limit 0.99), {int(live.sum())} live on both, max |Δpos| {err:.3e} px "
+          f"(limit 1e-3), repeat bit-equal", flush=True)
+    if agree < 0.99 or err > 1e-3:
+        fail("K1's fused entry disagrees with track_keypoints_plain")
+    if bool((steps[~ok] != 0).any()) or bool((steps < 0).any()) \
+            or bool((steps > iters).any()):
+        fail("K1's fused entry: LK steps out of [0, iters], or on a dead slot")
+
+    def fused():
+        return klt.track_keypoints_cuda(*args)
+
+    def plain():
+        return klt.track_keypoints_plain(*args)
+
+    def chain():  # entry 1 per level and pass, with image-wide Scharr
+        return klt.track_keypoints_plain(*args, level_fn=klt.track_level_cuda)
+
+    p1, c1 = cuda_ms(plain, reps=5), cuda_ms(chain)
+    k1, k2 = cuda_ms(fused, reps=100), cuda_ms(fused, reps=100)
+    c2, p2 = cuda_ms(chain), cuda_ms(plain, reps=5)
+    res = {"max_abs_err": err, "status_agreement": agree, "live": int(live.sum()),
+           "ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2,
+           "plain_ms_runs": [p1, p2], "chain_ms": (c1 + c2) / 2,
+           "chain_ms_runs": [c1, c2], "device_ms": device_ms(fused),
+           "device_ms_iters_1": device_ms(lambda: klt.track_keypoints_cuda(*args, iters=1)),
+           "chain_device_ms": device_ms(chain)}
+    # a launch lasts about its longest chain of LK steps plus each pass's
+    # loads and windows; at iters=1 every pass takes one step at most, so
+    # the two launches' difference over their chains' is one step alone
+    steps_1 = torch.zeros_like(steps)
+    klt.track_keypoints_cuda(*args, iters=1, steps_out=steps_1)
+    torch.cuda.synchronize()
+    chain_1 = int(steps_1.sum(1).max()) if n_pts else 0
+
+    # bound. Bytes: each input read once, as much of it as the function
+    # needs: per image the smaller of the image and the blocks read from
+    # it (a (win+3)^2 block of the previous image per pass, a search^2
+    # block of the next; the backward pass reads level 0 of each the
+    # other way round), plus points, validity and the outputs.
+    # Operations: at the LK steps this run's points took, plus each
+    # pass's Scharr and windows.
+    n_fwd = int(ok.sum())
+    n_bwd = int((steps[:, -1] > 0).sum())
+    blk = (win + 3) ** 2 * 4
+    moved = nbytes(pts, init, ok) + n_pts * (2 * 4 + 1)
+    for lev in range(levels):
+        search = klt.SEARCH if lev == levels - 1 else klt.SEARCH_LO
+        prev_need = n_fwd * blk + (n_bwd * klt.SEARCH_LO ** 2 * 4 if lev == 0 else 0)
+        next_need = n_fwd * search ** 2 * 4 + (n_bwd * blk if lev == 0 else 0)
+        moved += min(nbytes(pyrs[0][lev]), prev_need) + min(nbytes(pyrs[1][lev]), next_need)
+    n_steps = int(steps.sum())
+    passes = n_fwd * levels + n_bwd
+    flops = (win ** 2 * (n_steps * KLT_FLOPS_PER_TAP + passes * KLT_WINDOW_FLOPS)
+             + passes * (win + 1) ** 2 * KLT_SCHARR_FLOPS)
+    res.update(bound(moved, flops, 4))
+    res["lk_steps"] = n_steps
+    res["lk_steps_per_pass"] = [int(x) for x in steps.sum(0)]
+    res["longest_chain"] = int(steps.sum(1).max()) if n_pts else 0
+    res["us_per_step"] = res["latency_floor_us"] = None
+    if res["longest_chain"] > chain_1:
+        res["us_per_step"] = ((res["device_ms"] - res["device_ms_iters_1"]) * 1e3
+                              / (res["longest_chain"] - chain_1))
+        res["latency_floor_us"] = res["longest_chain"] * res["us_per_step"]
+    print(f"K1 klt_track per frame pair: kernel {res['ms']:.4f} ms with the wrapper "
+          f"({k1:.4f} / {k2:.4f}), {res['device_ms']:.4f} ms on the device alone; "
+          f"five-launch chain of entry 1 with its Scharr calls {res['chain_ms']:.4f} ms "
+          f"({c1:.4f} / {c2:.4f}), {res['chain_device_ms']:.4f} ms on the device; "
+          f"plain {res['plain_ms']:.4f} ms ({p1:.4f} / {p2:.4f})", flush=True)
+    print(f"K1 klt_track bound: {res['bound_ms'] * 1e3:.2f} us by {res['bound_by']} "
+          f"({moved / 1e6:.2f} MB; {flops / 1e9:.4f} GFLOP at the {n_steps} LK steps "
+          f"taken, by pass {res['lk_steps_per_pass']}); longest chain "
+          f"{res['longest_chain']} steps at {res['us_per_step']} us a step alone "
+          f"(at iters=1 {res['device_ms_iters_1']:.4f} ms for a chain of {chain_1}): "
+          f"latency floor {res['latency_floor_us']} us", flush=True)
+    return res
 
 
 GRAM_NAMES = ["P", "b6", "Hll", "Hfl6", "bl"]
@@ -430,6 +571,8 @@ def drive_phase(dev, n_frames: int) -> dict:
     import torch
 
     from xrslam_tpu_torch import api
+    from xrslam_tpu_torch.frontend import image as img_ops
+    from xrslam_tpu_torch.frontend import klt
     from xrslam_tpu_torch.kernels import build
     from xrslam_tpu_torch.tools.make_dataset import render_sequence, timed_run
 
@@ -442,25 +585,40 @@ def drive_phase(dev, n_frames: int) -> dict:
     print(f"warm pass: {warm['frames_tracked']}/{WARM_FRAMES} tracked, "
           f"ATE {warm['ate_m']:.4f} m, {warm['frames_per_s']:.3f} frames/s",
           flush=True)
+    slam = api.XRSLAM(config=seq["config"], device=dev)
     build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    res = timed_run(api.XRSLAM(config=seq["config"], device=dev), seq, dev)
+    with counting(klt, "track_keypoints") as pairs, \
+            counting(img_ops, "scharr") as scharr_calls:
+        res = timed_run(slam, seq, dev)
     res["launches"] = {k.name: k.launches for k in build.KERNELS}
-    res["entry_launches"] = dict(build.REPROJ_GRAM.entry_launches)
+    res["entry_launches"] = {k.name: dict(k.entry_launches) for k in build.KERNELS}
+    res["frame_pairs_tracked"] = pairs[0]
+    res["scharr_calls"] = scharr_calls[0]
     res["peak_mem_mb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     res["warm_pass"] = {k: warm[k] for k in ("frames_tracked", "ate_m",
                                              "frames_per_s")}
     print(f"timed pass: {res['frames_tracked']}/{n_frames} tracked, ATE "
           f"{res['ate_m']:.4f} m, {res['frames_per_s']:.3f} frames/s "
-          f"({res['seconds']:.1f} s), launches {res['launches']} (K2 by entry: "
-          f"{res['entry_launches']}), peak {res['peak_mem_mb']:.0f} MiB", flush=True)
+          f"({res['seconds']:.1f} s), launches {res['launches']} (by entry: "
+          f"{res['entry_launches']}) over {res['frame_pairs_tracked']} frame pairs "
+          f"tracked, {res['scharr_calls']} image-wide Scharr calls, peak "
+          f"{res['peak_mem_mb']:.0f} MiB", flush=True)
     print("stage means (ms): " + json.dumps(
         {k: round(v, 2) for k, v in res["stage_ms"].items()}), flush=True)
     for k in build.KERNELS:
         if res["launches"][k.name] == 0:
             fail(f"kernel {k.name} was not launched by the main path")
-    if res["entry_launches"]["reproj_factor_gram_launch"] == 0:
+    if res["entry_launches"]["reproj_gram"]["reproj_factor_gram_launch"] == 0:
         fail("the main path did not launch the fused K2 entry")
+    k1 = res["entry_launches"]["klt_level"]
+    if res["frame_pairs_tracked"] == 0 \
+            or k1[klt.ENTRY_TRACK] != res["frame_pairs_tracked"]:
+        fail(f"K1's fused entry launched {k1[klt.ENTRY_TRACK]} times for "
+             f"{res['frame_pairs_tracked']} frame pairs tracked")
+    if k1[klt.ENTRY_LEVEL] != 0 or res["scharr_calls"] != 0:
+        fail(f"the main path launched K1's entry 1 {k1[klt.ENTRY_LEVEL]} times and "
+             f"the image-wide Scharr {res['scharr_calls']} times (both must be 0)")
     if res["frames_tracked"] < 60:
         fail(f"only {res['frames_tracked']} of {n_frames} frames tracked (< 60)")
     if not res["ate_m"] <= 0.25:
@@ -497,13 +655,14 @@ def main(argv=None) -> None:
           f"{time.perf_counter() - t0:.1f} s ({os.path.basename(info['library'])})",
           flush=True)
 
-    k1 = klt_phase(dev)
+    k1_level = klt_phase(dev)
+    k1 = klt_track_phase(dev)
     k2_gram = gram_phase(dev)
     k2 = factor_gram_phase(dev)
     drive = drive_phase(dev, N_FRAMES)
 
-    # one record per kernel; K2's is the fused entry (the main path's),
-    # with the entry-1 numbers at the same shape beside it
+    # one record per kernel, from its main-path entry (K1's and K2's
+    # fused entries), with entry 1's numbers beside it
     kernels = []
     for k, r in ((build.KLT_LEVEL, k1), (build.REPROJ_GRAM, k2)):
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
@@ -511,10 +670,16 @@ def main(argv=None) -> None:
                         "launches": drive["launches"][k.name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "device_ms": r["device_ms"],
+                        "entry_launches": drive["entry_launches"][k.name]})
+    kernels[0]["longest_chain"] = k1["longest_chain"]
+    kernels[0]["latency_floor_us"] = k1["latency_floor_us"]
+    kernels[0]["chain_ms"] = k1["chain_ms"]
+    kernels[0]["entry_klt_level"] = {
+        key: k1_level[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")}
     e1 = k2_gram["K=12 L=384 float64"]
-    kernels[1]["device_ms"] = k2["device_ms"]
-    kernels[1]["entry_launches"] = drive["entry_launches"]
     kernels[1]["entry_reproj_gram"] = {
         key: e1[key] for key in ("max_abs_err", "ms", "plain_ms", "device_ms",
                                  "bound_ms", "bound_by")}
@@ -522,7 +687,8 @@ def main(argv=None) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "build": {k: v for k, v in info.items()},
-                       "k1": k1, "k2_reproj_gram": k2_gram,
+                       "k1_klt_level": k1_level, "k1_klt_track": k1,
+                       "k2_reproj_gram": k2_gram,
                        "k2_reproj_factor_gram": k2, "drive": drive,
                        "kernels": kernels}, f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}))

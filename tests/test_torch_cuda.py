@@ -7,9 +7,9 @@ a machine with a CUDA device and no JAX:
 (`tests/conftest.py` imports jax, hence `--noconftest` there). Every
 test skips without a CUDA device.
 
-Tolerances, both from summation order alone: K1 (float32) status equal
-on >= 99% of slots and positions within 1e-3 px on the slots live on
-both sides; K2 rtol = atol = 1e-9 in float64 and 1e-4 in float32. The
+Tolerances, both from summation order alone: K1 (float32, both
+entries) status equal on >= 99% of slots and positions within 1e-3 px
+on the slots live on both sides; K2 rtol = atol = 1e-9 in float64 and 1e-4 in float32. The
 fused entry in float32 is judged against the float64 plain result,
 entry by entry in units of eps * sum|term| (`gram.rounding_ratios`): it
 may be at most 4x as far off as the float32 plain version is.
@@ -141,6 +141,121 @@ def test_klt_level_edges_and_empty(dev, pair):
     g0, v0, e0 = klt.track_level(prev, ix, iy, nxt, empty, empty,
                                  valid[:0], **KW, final=True)
     assert g0.shape == (0, 2) and v0.shape == (0,) and e0.shape == (0,)
+
+
+def _track_inputs(dev, width=320, height=240, focal=260.0, n=256):
+    """CLAHE'd pyramids of a rendered frame pair, n GFTT points of the
+    first frame and seeds perturbed by 1.5 px."""
+    seq = render_sequence(n_frames=2, width=width, height=height, focal=focal)
+    pyrs = [_preprocess_image(torch.from_numpy(im).to(dev), 6.0, 8, 8, 3)
+            for im in seq["images"]]
+    cand, _, ok = img_ops.gftt_candidates(pyrs[0][0], max_candidates=n)
+    rng = np.random.default_rng(n)
+    init = cand + torch.as_tensor(rng.normal(0, 1.5, tuple(cand.shape)),
+                                  dtype=torch.float32, device=dev)
+    return pyrs[0], pyrs[1], cand.contiguous(), init.contiguous(), ok
+
+
+def _check_track(args, min_live):
+    """The fused entry against `track_keypoints_plain`, its step counts,
+    and a bit-equal repeat. Returns the fused result."""
+    levels, N = len(args[0]), args[2].shape[0]
+    before = dict(build.KLT_LEVEL.entry_launches)
+    steps = torch.full((N, levels + 1), -1, dtype=torch.int32, device=args[2].device)
+    out = klt.track_keypoints_cuda(*args, steps_out=steps)
+    ref = klt.track_keypoints_plain(*args)
+    torch.cuda.synchronize()
+    assert build.KLT_LEVEL.entry_launches[klt.ENTRY_TRACK] \
+        == before[klt.ENTRY_TRACK] + (1 if N else 0)
+    assert build.KLT_LEVEL.entry_launches[klt.ENTRY_LEVEL] == before[klt.ENTRY_LEVEL]
+    assert out[0].shape == (N, 2) and out[1].shape == (N,) and out[1].dtype == torch.bool
+    assert _agree(out, ref, "klt_track") >= min_live
+    assert bool(torch.isfinite(out[0]).all())
+    assert torch.equal(out[0][~out[1]], args[3][~out[1]]), "dead slots keep pts_init"
+    if N:
+        assert bool((steps[~args[4]] == 0).all()), "a dead slot took LK steps"
+        assert bool(((steps >= 0) & (steps <= KW["iters"])).all())
+        # a tracked point ran level 0 and the backward pass
+        assert bool((steps[out[1]][:, -2:] >= 1).all())
+    again = klt.track_keypoints_cuda(*args)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+    return out
+
+
+@pytest.mark.parametrize("size", [(320, 240, 260.0), (752, 480, 458.0)],
+                         ids=["320x240", "752x480"])
+def test_klt_track_matches_plain(dev, size):
+    """K1's fused entry (the main path's) against the per-level plain
+    composition, through the dispatcher too."""
+    args = _track_inputs(dev, *size)
+    _check_track(args, min_live=50)
+    before = build.KLT_LEVEL.entry_launches[klt.ENTRY_TRACK]
+    klt.track_keypoints(*args)
+    assert build.KLT_LEVEL.entry_launches[klt.ENTRY_TRACK] == before + 1
+
+
+@pytest.mark.parametrize("n", [0, 1, 257])
+def test_klt_track_point_counts(dev, n):
+    """No points (no launch), one point (its status agrees; at this seed
+    both versions drop it), and one more than 256 (a CTA with an idle
+    warp)."""
+    if n == 0:
+        pyr0, pyr1, pts, init, ok = _track_inputs(dev)
+        args = (pyr0, pyr1, pts[:0], init[:0], ok[:0])
+    else:
+        args = _track_inputs(dev, n=n)
+    _check_track(args, min_live=50 if n > 50 else 0)
+
+
+def test_klt_track_seeds_past_edges(dev):
+    """Seeds thrown 60 px past every image edge (the search block's
+    clamps and zero fill, on every level) and points on the window
+    margin (the sample block's clamped corner)."""
+    pyr0, pyr1, pts, init, ok = _track_inputs(dev)
+    H, W = pyr0[0].shape
+    init = init.clone()
+    q = 16
+    init[0:q, 0] = -60.0
+    init[q:2 * q, 0] = W + 60.0
+    init[2 * q:3 * q, 1] = -60.0
+    init[3 * q:4 * q, 1] = H + 60.0
+    pts = pts.clone()
+    pts[4 * q:5 * q, 0] = 10.25
+    pts[5 * q:6 * q, 1] = H - 10.5
+    init[4 * q:6 * q] = pts[4 * q:6 * q]
+    out = _check_track((pyr0, pyr1, pts, init, ok), min_live=50)
+    assert not bool(out[1][4 * q:6 * q].any()), "the 20 px border gate"
+
+
+def test_klt_track_graph_capture(dev):
+    """The fused wrapper allocates, launches and never syncs: it can be
+    captured in a CUDA graph, whose replay gives the eager result."""
+    args = _track_inputs(dev)
+    eager = klt.track_keypoints_cuda(*args)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = klt.track_keypoints_cuda(*args)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured[0], eager[0]) and torch.equal(captured[1], eager[1])
+
+
+def test_klt_track_wrapper_raises(dev):
+    pyr0, pyr1, pts, init, ok = _track_inputs(dev)
+    with pytest.raises(ValueError, match="float32"):
+        klt.track_keypoints_cuda([x.double() for x in pyr0], [x.double() for x in pyr1],
+                                 pts, init, ok)
+    with pytest.raises(ValueError, match="must be on"):
+        klt.track_keypoints(pyr0, pyr1, pts.cpu(), init, ok)
+    with pytest.raises(ValueError, match="pyramid level 2"):
+        klt.track_keypoints(pyr0, pyr1[:2] + [pyr1[2][:-1].contiguous()] + pyr1[3:],
+                            pts, init, ok)
+    with pytest.raises(ValueError, match="contiguous"):
+        klt.track_keypoints(pyr0, pyr1, pts.t().contiguous().t(), init, ok)
+    with pytest.raises(ValueError, match="steps_out"):
+        klt.track_keypoints_cuda(pyr0, pyr1, pts, init, ok, steps_out=torch.zeros(
+            (pts.shape[0], 5), dtype=torch.int64, device=dev))
 
 
 def _gram_inputs(K, L, seed, dt, dev):

@@ -10,8 +10,13 @@ confinement and level-0 residual — stands in for it.
 Targets (float32): status equal on >= 99% of slots; positions within
 1e-3 px on the slots live on both sides.
 
+The fused entry's gradient stage (`klt.scharr_windows`: Scharr on each
+point's clamped (win+3)² block, then the bilinear blend) is held to
+`image.scharr` + `klt._sample_window` of the JAX package at rtol 1e-5,
+atol 1e-4 (summation order).
+
 The CUDA kernel itself runs only on the card; tests/test_torch_cuda.py
-holds it to the plain version there.
+holds both entries to their plain versions there.
 """
 
 import jax
@@ -126,3 +131,44 @@ def test_track_level_plain_on_cpu_only(pair):
                               win=21, iters=2, eps=0.01, final=True)
     assert build.KLT_LEVEL.launches == before
     assert g.shape == (N_PTS, 2) and v.dtype == torch.bool and e.shape == (N_PTS,)
+
+
+def test_scharr_windows_match_jax(pair):
+    """The window-local Scharr at all four levels, with points on the
+    first and last pixel of the 10 px window margin (the last one clamps
+    the sample block's corner) and a few past it."""
+    pyrs, _, _, _ = pair
+    rng = np.random.default_rng(2)
+    for lev in range(4):
+        img = pyrs[0][lev]
+        H, W = img.shape
+        q = 8
+        lo = 10.0 + rng.uniform(0, 1, q)
+        xs = np.concatenate([lo, W - 11.0 + rng.uniform(0, 0.99, q),
+                             rng.uniform(10, W - 10, 2 * q), [3.5, W - 2.5]])
+        ys = np.concatenate([rng.uniform(10, H - 10, 2 * q), lo,
+                             H - 11.0 + rng.uniform(0, 0.99, q), [H - 4.25, 1.75]])
+        c = np.stack([xs, ys], 1).astype(np.float32)
+        ix, iy = jimage.scharr(jnp.asarray(img))
+        want = [np.asarray(jax.vmap(lambda p, a=a: jklt._sample_window(a, p, 21))(
+            jnp.asarray(c))) for a in (jnp.asarray(img), ix, iy)]
+        got = klt.scharr_windows(torch.as_tensor(img), torch.as_tensor(c), 21)
+        for name, g, w in zip(("T", "Ix", "Iy"), got, want):
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-4,
+                                       err_msg=f"level {lev} {name}")
+
+
+def test_track_keypoints_on_cpu_takes_plain(pair):
+    """On CPU tensors the dispatcher returns `track_keypoints_plain`'s
+    result and launches neither entry of K1."""
+    from xrslam_tpu_torch.kernels import build
+
+    pyrs, pts, init, valid = pair
+    args = ([torch.as_tensor(a) for a in pyrs[0]], [torch.as_tensor(a) for a in pyrs[1]],
+            torch.as_tensor(pts), torch.as_tensor(init), torch.as_tensor(valid))
+    before = dict(build.KLT_LEVEL.entry_launches)
+    n_d, s_d = klt.track_keypoints(*args)
+    assert build.KLT_LEVEL.entry_launches == before
+    n_p, s_p = klt.track_keypoints_plain(*args)
+    assert torch.equal(n_d, n_p) and torch.equal(s_d, s_p)
+    assert n_d.shape == (N_PTS, 2) and s_d.dtype == torch.bool and int(s_d.sum()) > 50

@@ -15,7 +15,8 @@ reverse-consistency gate.
 
 The two hand-written CUDA kernels of the main path live in `csrc/`
 (`klt_level.cu`, `reproj_gram.cu`); `kernels/build.py` compiles them at
-first use. Their wrappers (`frontend.klt.track_level`;
+first use. Their wrappers (`frontend.klt.track_keypoints`, the fused
+entry the tracker calls, and `track_level`;
 `estimation.gram.reproj_gram` and `reproj_factor_gram`, the fused entry
 `solver.assemble` takes) run the plain PyTorch version for CPU tensors
 and the kernel for CUDA tensors. `api.XRSLAM` runs on the card unless

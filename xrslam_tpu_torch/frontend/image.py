@@ -90,8 +90,9 @@ def _sep_filter(img: torch.Tensor, kx: np.ndarray, ky: np.ndarray) -> torch.Tens
 
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """cv::pyrDown: 5-tap Gaussian blur then 2x decimation."""
-    return _sep_filter(img, _GAUSS5, _GAUSS5)[..., ::2, ::2]
+    """cv::pyrDown: 5-tap Gaussian blur then 2x decimation (contiguous,
+    as K1's fused entry takes it)."""
+    return _sep_filter(img, _GAUSS5, _GAUSS5)[..., ::2, ::2].contiguous()
 
 
 def build_pyramid(img: torch.Tensor, levels: int = 3):

@@ -35,6 +35,7 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns cudaError_t)
 SIGNATURES = {
     "klt_level_launch": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+    "klt_track_launch": [_P] * 14 + [_I] * 14 + [_F] * 5 + [_P],
     "reproj_gram_launch": [_P] * 14 + [_I, _I, _I, _I, _P],
     "reproj_factor_gram_launch": [_P] * 19 + [_I, _I, _I, _I, _P],
 }
@@ -65,7 +66,7 @@ class Kernel:
         self.entry_launches = {e: 0 for e in self.entries}
 
 
-KLT_LEVEL = Kernel("klt_level", ("klt_level_launch",),
+KLT_LEVEL = Kernel("klt_level", ("klt_level_launch", "klt_track_launch"),
                    "xrslam_tpu_torch/csrc/klt_level.cu",
                    "xrslam_tpu/frontend/klt_pallas.py:150")
 REPROJ_GRAM = Kernel("reproj_gram",

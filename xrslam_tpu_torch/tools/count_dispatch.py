@@ -2,13 +2,13 @@
 dispatches (each is one kernel launch, or a few, on a CUDA device).
 
     python -m xrslam_tpu_torch.tools.count_dispatch [--frames 6 --landmarks 64]
-                                                    [--device cpu|cuda]
+                                                    [--device cuda|cpu]
 
 Counts with a `TorchDispatchMode`. The counts depend on the code path,
-not on the window's size; the path depends on the device: with
-`--device cuda`, `assemble` takes K2's fused kernel (one C call, which
-the mode does not see; its launches are listed beside the counts)
-where the CPU takes its plain version. Views and reshapes are
+not on the window's size; the path depends on the device: on the card
+(the default), `assemble` takes K2's fused kernel (one C call, which
+the mode does not see; its launches are listed beside the counts),
+and with `--device cpu` its plain version. Views and reshapes are
 dispatched but launch nothing, so a count is an upper bound on launches.
 """
 
@@ -45,7 +45,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--landmarks", type=int, default=64)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     state, data = reproj_window(args.frames, args.landmarks, seed=0, device=dev)

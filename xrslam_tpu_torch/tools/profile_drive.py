@@ -78,10 +78,13 @@ def main(argv=None) -> None:
                     if not e.key.startswith(("Memcpy", "Memset")))
     own = {tag: {"launches_per_frame": sum(e.count for e in kernels if tag in e.key)
                  / n_traced,
+                 "device_us_per_frame": sum(_device_us(e) for e in kernels
+                                            if tag in e.key) / n_traced,
                  "share_of_device_time": sum(_device_us(e) for e in kernels
                                              if tag in e.key) / max(dev_us, 1e-9)}
            for tag in ("gram_main_kernel", "gram_reduce_kernel",
-                       "onehot_ref_kernel", "klt_level")}
+                       "onehot_ref_kernel", "klt_track_kernel",
+                       "klt_level_kernel")}
     res = {
         "card": torch.cuda.get_device_name(0),
         "frames_traced": [args.start + 1, args.stop],
