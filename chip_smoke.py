@@ -37,13 +37,48 @@
      eps * sum|term|, and the kernel may be at most 4x as far off as the
      plain version; two launches bit-equal; landmarks at inverse depth 0
      (the 1e-12 guard) within 1e-3 of their largest entry;
-4. drives the main path — a rendered 120-frame wave scene at EuRoC
+4. holds one IMU-PARSAC PnP call (256 points, 256 hypotheses, f64) on
+   the card to itself (two calls from equally seeded generators,
+   bit-equal) and to the CPU on the card's minimal samples (T 1e-9,
+   mask and count equal, bin confidences 1e-12);
+5. drives the main path — a rendered 120-frame wave scene at EuRoC
    geometry (752x480, focal 458, 500 landmarks, seed 3) through
-   `api.XRSLAM` with IMU and images — once to warm up (40 frames), then
+   `api.XRSLAM` with IMU and images — once to warm up (20 frames), then
    timed with the kernel launch counts reset just before it; fails
    unless both kernels launched, the fused K2 entry among them, K1's
    fused entry once per tracked frame pair and its entry 1 never, no
-   image-wide Scharr call, >= 60 frames tracked and ATE <= 0.25 m.
+   image-wide Scharr call, >= 60 frames tracked and ATE <= 0.25 m;
+6. drives the same scene with `parsac_flag` (IMU-PARSAC judge and the
+   2D-2D update chain), with the same kernel checks; prints frames/s,
+   the `parsac_time` mean, how often the judge ran, passed the prior
+   gate and returned True, `tracks_unstatic`, the host reads and the
+   device syncs per PARSAC frame, and the judge's refusals by gate;
+   fails if the judge never ran or a frame read the device more than
+   twice (on this static scene the judge does not return True, in the
+   JAX package either);
+7. drives its first 60 frames with the camera-rate visual PnP and the
+   backend every third frame (`configs/iphone_slam.yaml`'s values);
+   fails unless at least 10 frames were tracked, the PnP pose was
+   published on at least half of them and the camera-rate ATE is
+   <= 0.25 m;
+8. drives the dynamic-object scene (60 frames, 96 static landmarks and
+   an 80-point moving object, 0.5 px noise, bearings through the
+   `SyntheticTracker`, PARSAC on) at eight `Config.random` seeds, the
+   first in this process and seven in processes of their own beside
+   it, and holds each to the JAX package's
+   `test_dynamic_object_parsac_e2e` criteria (tracks_unstatic >= 10,
+   more than half of the object's tracks non-static, more than 60% of
+   the static tracks static, ATE < 0.15 m): fails unless they all hold
+   at one seed at least; then, from the first seed's state before its
+   first judge call that returned True, runs the PARSAC chain (judge,
+   then update) on the card and on the CPU with the card's minimal
+   samples and fails unless the two agree: the judge's value, every
+   track's tags in both maps, tracks_unstatic, and m_th, the landed
+   pose and the bin confidences within 1e-12.
+
+Each drive sets the launch counts to 0 just before it and reads them
+just after; the `kernels` line gives the main path's as `launches` and
+every drive's in `launches_by_path`.
 
 The second-to-last lines are a JSON object {"kernels": [...]} and the
 nvidia-smi line; the last line is
@@ -67,7 +102,19 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_FRAMES = 120  # the JAX records' bench scene length
-WARM_FRAMES = 40
+WARM_FRAMES = 20
+PNP_FRAMES = 60
+# The dynamic-object scene's outcome turns on which frame the judge
+# first returns True, a matter of the RANSAC draws: over Config.random
+# seeds the JAX package met its e2e criteria in about half of the runs
+# and the port in about 0.4 (PERF.md). So the criteria are required at
+# one seed of eight (at a rate of 0.4, eight misses in a row have odds
+# near 1%), each seed in a process of its own beside the first (648,
+# the default), and the chain itself is held to the CPU on the same
+# draws (`chain_check`).
+OBJECT_SEEDS = tuple(range(648, 656))
+OBJECT_MIN_PASSED = 1
+OBJECT_TIMEOUT_S = 600
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
 # device memory rate, float32 outside the tensor cores, and float64
@@ -566,35 +613,70 @@ def guard_check(dev) -> dict:
     return res
 
 
-def drive_phase(dev, n_frames: int) -> dict:
+def counted_drive(slam, seq, dev, max_frames=None) -> dict:
+    """`timed_run` of `seq` through `slam` with every kernel launch count
+    set to 0 just before and read just after, and the frame pairs the
+    tracker tracked and the image-wide Scharr calls counted."""
+    from xrslam_tpu_torch.frontend import image as img_ops
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools.make_dataset import timed_run
+
+    build.reset_launch_counts()
+    with counting(klt, "track_keypoints") as pairs, \
+            counting(img_ops, "scharr") as scharr_calls:
+        res = timed_run(slam, seq, dev, max_frames=max_frames)
+    res["launches"] = {k.name: k.launches for k in build.KERNELS}
+    res["entry_launches"] = {k.name: dict(k.entry_launches) for k in build.KERNELS}
+    res["frame_pairs_tracked"] = pairs[0]
+    res["scharr_calls"] = scharr_calls[0]
+    return res
+
+
+def check_image_path(res: dict, what: str, min_tracked: int = 60) -> None:
+    """Fail unless an image drive went through both kernels: K2's fused
+    entry, K1's fused entry once per tracked frame pair, K1's entry 1
+    and the image-wide Scharr never; >= `min_tracked` frames tracked and
+    ATE <= 0.25 m."""
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.kernels import build
+
+    for k in build.KERNELS:
+        if res["launches"][k.name] == 0:
+            fail(f"{what}: kernel {k.name} was not launched")
+    if res["entry_launches"]["reproj_gram"]["reproj_factor_gram_launch"] == 0:
+        fail(f"{what}: the fused K2 entry was not launched")
+    k1 = res["entry_launches"]["klt_level"]
+    if res["frame_pairs_tracked"] == 0 \
+            or k1[klt.ENTRY_TRACK] != res["frame_pairs_tracked"]:
+        fail(f"{what}: K1's fused entry launched {k1[klt.ENTRY_TRACK]} times for "
+             f"{res['frame_pairs_tracked']} frame pairs tracked")
+    if k1[klt.ENTRY_LEVEL] != 0 or res["scharr_calls"] != 0:
+        fail(f"{what}: K1's entry 1 launched {k1[klt.ENTRY_LEVEL]} times and the "
+             f"image-wide Scharr {res['scharr_calls']} times (both must be 0)")
+    if res["frames_tracked"] < min_tracked:
+        fail(f"{what}: only {res['frames_tracked']} of {res['frames']} frames tracked "
+             f"(< {min_tracked})")
+    if not res["ate_m"] <= 0.25:
+        fail(f"{what}: ATE {res['ate_m']} m above 0.25 m")
+
+
+def drive_phase(dev, seq) -> dict:
     """The main path, warm pass then the timed, counted pass."""
     import torch
 
     from xrslam_tpu_torch import api
-    from xrslam_tpu_torch.frontend import image as img_ops
-    from xrslam_tpu_torch.frontend import klt
-    from xrslam_tpu_torch.kernels import build
-    from xrslam_tpu_torch.tools.make_dataset import render_sequence, timed_run
+    from xrslam_tpu_torch.tools.make_dataset import timed_run
 
-    t0 = time.perf_counter()
-    seq = render_sequence(n_frames=n_frames, width=752, height=480, focal=458.0)
-    print(f"rendered {n_frames} frames 752x480 in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n_frames = len(seq["t_cam"])
     warm = timed_run(api.XRSLAM(config=seq["config"], device=dev), seq, dev,
                      max_frames=WARM_FRAMES)
     print(f"warm pass: {warm['frames_tracked']}/{WARM_FRAMES} tracked, "
           f"ATE {warm['ate_m']:.4f} m, {warm['frames_per_s']:.3f} frames/s",
           flush=True)
     slam = api.XRSLAM(config=seq["config"], device=dev)
-    build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    with counting(klt, "track_keypoints") as pairs, \
-            counting(img_ops, "scharr") as scharr_calls:
-        res = timed_run(slam, seq, dev)
-    res["launches"] = {k.name: k.launches for k in build.KERNELS}
-    res["entry_launches"] = {k.name: dict(k.entry_launches) for k in build.KERNELS}
-    res["frame_pairs_tracked"] = pairs[0]
-    res["scharr_calls"] = scharr_calls[0]
+    res = counted_drive(slam, seq, dev)
     res["peak_mem_mb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     res["warm_pass"] = {k: warm[k] for k in ("frames_tracked", "ate_m",
                                              "frames_per_s")}
@@ -606,23 +688,278 @@ def drive_phase(dev, n_frames: int) -> dict:
           f"{res['peak_mem_mb']:.0f} MiB", flush=True)
     print("stage means (ms): " + json.dumps(
         {k: round(v, 2) for k, v in res["stage_ms"].items()}), flush=True)
-    for k in build.KERNELS:
-        if res["launches"][k.name] == 0:
-            fail(f"kernel {k.name} was not launched by the main path")
-    if res["entry_launches"]["reproj_gram"]["reproj_factor_gram_launch"] == 0:
-        fail("the main path did not launch the fused K2 entry")
-    k1 = res["entry_launches"]["klt_level"]
-    if res["frame_pairs_tracked"] == 0 \
-            or k1[klt.ENTRY_TRACK] != res["frame_pairs_tracked"]:
-        fail(f"K1's fused entry launched {k1[klt.ENTRY_TRACK]} times for "
-             f"{res['frame_pairs_tracked']} frame pairs tracked")
-    if k1[klt.ENTRY_LEVEL] != 0 or res["scharr_calls"] != 0:
-        fail(f"the main path launched K1's entry 1 {k1[klt.ENTRY_LEVEL]} times and "
-             f"the image-wide Scharr {res['scharr_calls']} times (both must be 0)")
-    if res["frames_tracked"] < 60:
-        fail(f"only {res['frames_tracked']} of {n_frames} frames tracked (< 60)")
-    if not res["ate_m"] <= 0.25:
-        fail(f"ATE {res['ate_m']} m above 0.25 m")
+    check_image_path(res, "the main path")
+    return res
+
+
+@contextlib.contextmanager
+def counting_syncs(cls, names):
+    """Counts the device syncs (uploads from pageable memory, reads)
+    made inside the methods `names` of `cls` while the block runs, by
+    torch's sync debug mode."""
+    import warnings
+
+    import torch
+
+    syncs = [0]
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(fn):
+        def counted(*args, **kwargs):
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    syncs[0] += sum("synchroniz" in str(w.message) for w in seen)
+        return counted
+
+    for n in names:
+        setattr(cls, n, wrap(saved[n]))
+    try:
+        yield syncs
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def parsac_drive_phase(dev, seq) -> dict:
+    """The main path's scene with `parsac_flag`: IMU-PARSAC judge and the
+    2D-2D update chain on every backend frame."""
+    from xrslam_tpu_torch import api
+    from xrslam_tpu_torch.core.sliding_window import SlidingWindowTracker
+
+    slam = api.XRSLAM(config=seq["config"].replace(parsac_flag=True), device=dev)
+    with counting_syncs(SlidingWindowTracker,
+                        ("judge_track_status", "update_track_status")) as syncs:
+        res = counted_drive(slam, seq, dev)
+    swt = slam.pipeline.swt
+    if swt is None:
+        fail("PARSAC drive: the pipeline never initialized")
+    st = dict(swt.stats)
+    calls = max(st["judge_calls"], 1)
+    res.update(parsac=st, parsac_ms=res["stage_ms"].get("parsac_time"),
+               host_reads_per_frame=st["parsac_host_reads"] / calls,
+               syncs_per_frame=syncs[0] / calls)
+    print(f"PARSAC drive: {res['frames_tracked']}/{res['frames']} tracked, ATE "
+          f"{res['ate_m']:.4f} m, {res['frames_per_s']:.3f} frames/s, parsac_time "
+          f"mean {res['parsac_ms']:.2f} ms, judge True {st['judge_true']} of "
+          f"{st['judge_calls']} calls (prior gate passed in {st['judge_prior_ok']}; "
+          f"refused with < 20 tracks {st['judge_refused_points']}, < 40 keyframe "
+          f"matches {st['judge_refused_matches']}, < 20 inliers "
+          f"{st['judge_refused_inliers']}, < 20 outliers {st['judge_refused_outliers']}, "
+          f"ambiguous {st['judge_refused_ambiguous']}), "
+          f"tracks_unstatic {st['tracks_unstatic']}, "
+          f"launches {res['launches']} (by entry {res['entry_launches']}) over "
+          f"{res['frame_pairs_tracked']} frame pairs, host reads per PARSAC frame "
+          f"{res['host_reads_per_frame']:.3f}, device syncs per PARSAC frame "
+          f"{res['syncs_per_frame']:.3f}", flush=True)
+    print("PARSAC drive stage means (ms): " + json.dumps(
+        {k: round(v, 2) for k, v in res["stage_ms"].items()}), flush=True)
+    check_image_path(res, "PARSAC drive")
+    # on this static scene the judge does not return True, in the JAX
+    # package either (PERF.md): that is required of the dynamic-object
+    # drive, not here
+    if st["judge_calls"] == 0:
+        fail("PARSAC drive: judge_track_status never ran")
+    if res["host_reads_per_frame"] > 2:
+        fail(f"PARSAC drive: {res['host_reads_per_frame']} host reads per frame (> 2)")
+    return res
+
+
+def visual_pnp_phase(dev, seq) -> dict:
+    """The main path's scene with the camera-rate visual PnP and the
+    backend every third frame (configs/iphone_slam.yaml's values)."""
+    from xrslam_tpu_torch import api
+
+    cfg = seq["config"].replace(visual_pnp_enable=True, visual_pnp_min_landmarks=10,
+                                sliding_window_tracker_frequent=3)
+    slam = api.XRSLAM(config=cfg, device=dev)
+    res = counted_drive(slam, seq, dev, max_frames=PNP_FRAMES)
+    res["pnp_frames"] = slam.pipeline.pnp_frames
+    print(f"visual-PnP drive: {res['frames_tracked']}/{res['frames']} tracked, PnP "
+          f"pose published on {res['pnp_frames']} frames, camera-rate ATE "
+          f"{res['ate_m']:.4f} m, {res['frames_per_s']:.3f} frames/s, launches "
+          f"{res['launches']} over {res['frame_pairs_tracked']} frame pairs", flush=True)
+    print("visual-PnP drive stage means (ms): " + json.dumps(
+        {k: round(v, 2) for k, v in res["stage_ms"].items()}), flush=True)
+    # the backend initializes on about frame 28 of 60 (every frame until
+    # then), so 10 tracked frames (tests/test_visual_pnp.py's floor)
+    check_image_path(res, "visual-PnP drive", min_tracked=10)
+    if 2 * res["pnp_frames"] < res["frames_tracked"]:
+        fail(f"visual-PnP drive: the PnP pose was published on {res['pnp_frames']} "
+             f"of {res['frames_tracked']} tracked frames (< half)")
+    return res
+
+
+def object_drive(seed: int, dev, chain_snapshots: bool = False):
+    """The dynamic-object scene (bearings through the SyntheticTracker,
+    PARSAC on, `Config.random` = seed) on `dev`; returns its record and,
+    with `chain_snapshots`, the chain's snapshots before every judge
+    call (`tools.parsac_chain`)."""
+    import torch
+
+    from xrslam_tpu_torch.core.detail import SyntheticTracker, VIOPipeline
+    from xrslam_tpu_torch.tools import object_scene as osc
+    from xrslam_tpu_torch.tools import parsac_chain as chain
+
+    scene = osc.object_scene()
+    pipe = VIOPipeline(osc.object_config(scene, parsac_flag=True, random=seed),
+                       SyntheticTracker(device=dev), device=dev)
+    t0 = time.perf_counter()
+    with chain.snapshotting() if chain_snapshots else contextlib.nullcontext([]) as snaps:
+        est_t, est_p = osc.drive(pipe, scene)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    res = {"seed": seed, "frames": len(scene["bearings"]), "frames_tracked": len(est_t),
+           "seconds": time.perf_counter() - t0, "initialized": pipe.swt is not None}
+    if res["initialized"]:
+        res.update(ate_m=osc.scene_ate(scene, est_t, est_p), parsac=dict(pipe.swt.stats),
+                   verdict=osc.object_verdict(pipe, scene),
+                   stage_ms={k: v * 1e3 for k, v in sorted(pipe.times.means().items())})
+        res["misses"] = osc.criteria_failures(res["parsac"], res["verdict"], res["ate_m"])
+    else:
+        res["misses"] = ["never initialized"]
+    return res, snaps, pipe.config
+
+
+def object_seed_worker(seed: int, dev: str) -> dict:
+    """One seed of the dynamic-object study, in a process of its own."""
+    import torch
+
+    torch.set_num_threads(1)
+    return object_drive(seed, torch.device(dev))[0]
+
+
+def chain_check(dev, snaps, cfg) -> dict:
+    """The PARSAC chain from the drive's state before the first judge
+    call that returned True (the last call's if none did): judge then
+    update on the card, from the drive's generator state, and on the
+    CPU with the card's minimal samples; the same value, tags of every
+    track in both maps and tracks_unstatic, m_th, landed pose and bin
+    confidences within 1e-12."""
+    from xrslam_tpu_torch.core.map import PipelineMap
+    from xrslam_tpu_torch.core.sliding_window import SlidingWindowTracker
+    from xrslam_tpu_torch.tools import parsac_chain as chain
+
+    picked = chain.first_fired(snaps)
+    if picked is None:
+        fail("dynamic-object drive: judge_track_status never ran")
+    snap, fired = picked
+    card = SlidingWindowTracker(PipelineMap(), cfg, dev)
+    card.generator.set_state(snap["generator"])
+    card_snap = chain.on_device(snap, dev)
+    with chain.recorded_draws() as drawn:
+        card_ok = chain.run_chain(card, card_snap)
+    host = SlidingWindowTracker(PipelineMap(), cfg, "cpu")
+    host_snap = chain.on_device(snap, "cpu")
+    with chain.replayed_draws(drawn):
+        host_ok = chain.run_chain(host, host_snap)
+    bad = chain.differences(card_ok, card, card_snap, host_ok, host, host_snap)
+    res = {"from_first_true": fired, "judge": card_ok, "draws": len(drawn),
+           "tracks_unstatic": card.stats["tracks_unstatic"] - snap["stats"]["tracks_unstatic"],
+           "differences": bad}
+    print(f"PARSAC chain on the card against the CPU ({'first judge True' if fired else 'no judge True in the drive: its last call'}, "
+          f"{len(drawn)} minimal-sample draws): judge {card_ok}, "
+          f"{res['tracks_unstatic']} tracks un-static'd, "
+          f"{'agree' if not bad else 'DIFFER: ' + '; '.join(bad)}", flush=True)
+    if card_ok != fired:
+        fail(f"PARSAC chain: the replay's judge returned {card_ok}, the drive's {fired}")
+    if bad:
+        fail("PARSAC chain on the card disagrees with the CPU: " + "; ".join(bad))
+    return res
+
+
+def object_phase(dev) -> dict:
+    """The dynamic-object scene at OBJECT_SEEDS[0] in this process (its
+    kernel launches counted, the chain's snapshots kept for
+    `chain_check`), and at the other OBJECT_SEEDS in processes of their
+    own beside it, each held to the JAX package's e2e criteria."""
+    import concurrent.futures
+    import multiprocessing
+
+    from xrslam_tpu_torch.kernels import build
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(OBJECT_SEEDS) - 1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(object_seed_worker, s, str(dev)) for s in OBJECT_SEEDS[1:]]
+        build.reset_launch_counts()
+        res, snaps, cfg = object_drive(OBJECT_SEEDS[0], dev, chain_snapshots=True)
+        res["launches"] = {k.name: k.launches for k in build.KERNELS}
+        seeds = [res] + [f.result(timeout=OBJECT_TIMEOUT_S) for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for r in seeds:
+        print(f"dynamic-object drive, random {r['seed']}: {r['frames_tracked']}/"
+              f"{r['frames']} tracked, ATE {r.get('ate_m', float('nan')):.4f} m, "
+              f"{r['seconds']:.1f} s, PARSAC {r.get('parsac')}, tags {r.get('verdict')}, "
+              f"misses {r['misses'] or 'none'}", flush=True)
+    passed = [r["seed"] for r in seeds if not r["misses"]]
+    print(f"dynamic-object drive: all four e2e criteria met at {len(passed)} of "
+          f"{len(seeds)} seeds ({passed}); launches at random {res['seed']} "
+          f"{res['launches']}", flush=True)
+    if not res["initialized"] or res["launches"]["reproj_gram"] == 0:
+        fail("dynamic-object drive: the pipeline never initialized or K2 was not launched")
+    if len(passed) < OBJECT_MIN_PASSED:
+        fail(f"dynamic-object drive: the e2e criteria held at {len(passed)} of "
+             f"{len(seeds)} seeds (< {OBJECT_MIN_PASSED})")
+    res["chain"] = chain_check(dev, snaps, cfg)
+    res["seeds"] = {r["seed"]: {k: r.get(k) for k in ("frames_tracked", "ate_m", "seconds",
+                                                      "parsac", "verdict", "misses")}
+                    for r in seeds}
+    res["passed_seeds"] = passed
+    return res
+
+
+def parsac_repeat_phase(dev) -> dict:
+    """One IMU-PARSAC PnP call (256 points, 256 hypotheses, f64) on the
+    card twice from equally seeded generators: bit-equal; and against
+    the CPU on the card's minimal samples: T within 1e-9, the same mask
+    and count, bin confidences within 1e-12."""
+    import torch
+
+    from xrslam_tpu_torch.ransac import core, parsac, pnp
+
+    rng = np.random.default_rng(0)
+    N = 256
+    X = rng.uniform([-3.0, -2.0, 4.0], [3.0, 2.0, 9.0], (N, 3))
+    x = X[:, :2] / X[:, 2:3] + rng.normal(0, 1e-3, (N, 2))
+    x[x[:, 0] > 0.15] += [0.03, -0.02]
+    args = [X, x, rng.integers(0, 25, N), np.eye(4), rng.uniform(0, 1, parsac.N_BINS)]
+    valid = np.arange(N) < 200
+
+    def run(device, idx=None):
+        gen = torch.Generator(device=device).manual_seed(648)
+        t = [torch.as_tensor(a, device=device) for a in args]
+        return pnp.find_pnp_matrix_parsac_imu(
+            gen, t[0], t[1], t[2], t[3], t[4], 0.2,
+            valid=torch.as_tensor(valid, device=device), threshold=1.0 / 450.0,
+            norm_scale=1.5, idx=idx)
+
+    a, b = run(dev), run(dev)
+    torch.cuda.synchronize(dev)
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        fail("IMU-PARSAC: two calls on the card from the same seed differ")
+    gen = torch.Generator(device=dev).manual_seed(648)
+    b_idx = parsac.bucket_points(torch.as_tensor(x, device=dev), 1.5)
+    w = parsac.point_weights(b_idx, torch.as_tensor(args[4], device=dev),
+                             torch.as_tensor(valid, device=dev))
+    idx = core.sample_minimal(gen, 256, N, 6, torch.as_tensor(valid, device=dev), w)
+    cpu = run(torch.device("cpu"), idx=idx.cpu())
+    res = {"T_err": float((a[0].cpu() - cpu[0]).abs().max()),
+           "conf_err": float((a[3].cpu() - cpu[3]).abs().max()),
+           "mask_equal": bool(torch.equal(a[1].cpu(), cpu[1])),
+           "count_equal": int(a[2]) == int(cpu[2]), "ok": bool(a[4])}
+    print(f"IMU-PARSAC on the card: repeats bit-equal; against the CPU on the same "
+          f"samples T max |Δ| {res['T_err']:.3e} (limit 1e-9), confidences "
+          f"{res['conf_err']:.3e} (1e-12), mask equal {res['mask_equal']}, count "
+          f"equal {res['count_equal']}, prior gate {res['ok']}", flush=True)
+    if not (res["T_err"] <= 1e-9 and res["conf_err"] <= 1e-12 and res["mask_equal"]
+            and res["count_equal"]):
+        fail("IMU-PARSAC on the card disagrees with the CPU")
     return res
 
 
@@ -630,6 +967,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     try:
         import torch
@@ -659,7 +997,18 @@ def main(argv=None) -> None:
     k1 = klt_track_phase(dev)
     k2_gram = gram_phase(dev)
     k2 = factor_gram_phase(dev)
-    drive = drive_phase(dev, N_FRAMES)
+    repeat = parsac_repeat_phase(dev)
+
+    from xrslam_tpu_torch.tools.make_dataset import render_sequence
+
+    t0 = time.perf_counter()
+    seq = render_sequence(n_frames=N_FRAMES, width=752, height=480, focal=458.0)
+    print(f"rendered {N_FRAMES} frames 752x480 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    drive = drive_phase(dev, seq)
+    parsac_drive = parsac_drive_phase(dev, seq)
+    pnp_drive = visual_pnp_phase(dev, seq)
+    obj = object_phase(dev)
 
     # one record per kernel, from its main-path entry (K1's and K2's
     # fused entries), with entry 1's numbers beside it
@@ -672,7 +1021,12 @@ def main(argv=None) -> None:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "device_ms": r["device_ms"],
-                        "entry_launches": drive["entry_launches"][k.name]})
+                        "entry_launches": drive["entry_launches"][k.name],
+                        "launches_by_path": {
+                            "main": drive["launches"][k.name],
+                            "parsac": parsac_drive["launches"][k.name],
+                            "visual_pnp": pnp_drive["launches"][k.name],
+                            "dynamic_object": obj["launches"][k.name]}})
     kernels[0]["longest_chain"] = k1["longest_chain"]
     kernels[0]["latency_floor_us"] = k1["latency_floor_us"]
     kernels[0]["chain_ms"] = k1["chain_ms"]
@@ -690,7 +1044,11 @@ def main(argv=None) -> None:
                        "k1_klt_level": k1_level, "k1_klt_track": k1,
                        "k2_reproj_gram": k2_gram,
                        "k2_reproj_factor_gram": k2, "drive": drive,
+                       "parsac_repeat": repeat, "parsac_drive": parsac_drive,
+                       "visual_pnp_drive": pnp_drive, "object_drive": obj,
+                       "seconds": time.perf_counter() - t_start,
                        "kernels": kernels}, f, indent=1, default=float)
+    print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""A CPU rehearsal of `chip_smoke.py`'s phase for K1's fused entry.
+"""CPU rehearsals of `chip_smoke.py`'s phases for K1's fused entry and
+the IMU-PARSAC repeat check.
 
 `klt_track_phase` runs at 320x240 on CPU tensors with the kernel
 wrappers patched to their plain versions (the fused entry's stand-in
@@ -71,3 +72,13 @@ def test_klt_track_phase_rehearsal(monkeypatch):
     t_ops = res["flops"] / chip_smoke.PEAK_FLOPS[4] * 1e3
     assert res["bound_ms"] == max(t_bytes, t_ops)
     assert res["bound_by"] == ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def test_parsac_repeat_phase_rehearsal(monkeypatch):
+    """`parsac_repeat_phase` on CPU tensors: the repeat is bit-equal and
+    the card-vs-CPU comparison (here CPU against CPU on the same draw)
+    agrees exactly, with the prior gate passed."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    res = chip_smoke.parsac_repeat_phase(torch.device("cpu"))
+    assert res == {"T_err": 0.0, "conf_err": 0.0, "mask_equal": True,
+                   "count_equal": True, "ok": True}

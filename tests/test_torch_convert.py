@@ -1,13 +1,12 @@
 """State and Config round trips through xrslam_tpu_torch.convert, and
 the port's synthetic scene against the JAX package's: trajectory, IMU
 and landmarks to 1e-12 in float64, rendered frames bit-equal, and the
-committed landmark draw equal to a fresh `jax.random` draw.
+committed landmark and object draws equal to fresh `jax.random` draws.
 
 Run as a script from the repository root
 (`PYTHONPATH=. python tests/test_torch_convert.py --write`) to rewrite
-the committed landmark draw xrslam_tpu_torch/io/data/wave_seed3_l500.npy
-from the JAX package; the output is byte-identical to the committed
-file.
+the committed draws in xrslam_tpu_torch/io/data from the JAX package;
+the output is byte-identical to the committed files.
 """
 
 import dataclasses
@@ -37,6 +36,22 @@ def fresh_jax_landmarks(seed: int = 3, n_landmarks: int = 500) -> np.ndarray:
     """The JAX scene's landmark draw (independent of the frame count)."""
     return np.asarray(jsyn.wave_scene(n_frames=2, n_landmarks=n_landmarks,
                                       seed=seed).landmarks)
+
+
+def fresh_jax_object_draw(seed: int, n_points: int) -> np.ndarray:
+    """`moving_object`'s jax.random.uniform draw on [0, 1): the same
+    bits as its [-extent, extent) draw, before the scaling."""
+    return np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (n_points, 3),
+                                         dtype=jnp.float64))
+
+
+def committed_draws():
+    """(file, fresh JAX draw) of every draw committed in io/data."""
+    out = [(name, lambda k=k: fresh_jax_landmarks(*k))
+           for k, name in synthetic.DEFAULT_LANDMARKS.items()]
+    out += [(name, lambda k=k: fresh_jax_object_draw(*k))
+            for k, name in synthetic.DEFAULT_OBJECT_DRAWS.items()]
+    return [(os.path.join(synthetic.DATA_DIR, name), fn) for name, fn in out]
 
 
 def _leaves_equal(a, b):
@@ -92,6 +107,17 @@ def test_config_round_trip():
 
 def test_committed_landmarks_equal_fresh_jax_draw():
     np.testing.assert_array_equal(np.load(LANDMARK_FILE), fresh_jax_landmarks())
+
+
+SCENE_DRAWS = [d for d in committed_draws() if d[0] != LANDMARK_FILE]
+
+
+@pytest.mark.parametrize("path,fresh", SCENE_DRAWS,
+                         ids=[os.path.basename(p) for p, _ in SCENE_DRAWS])
+def test_committed_scene_draws_equal_fresh_jax_draws(path, fresh):
+    """The draws the dynamic-object scene reads (beside the bench
+    scene's landmarks, above)."""
+    np.testing.assert_array_equal(np.load(path), fresh())
 
 
 def test_wave_scene_matches_jax():
@@ -154,5 +180,6 @@ if __name__ == "__main__":
     if "--write" in sys.argv:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
-        np.save(LANDMARK_FILE, fresh_jax_landmarks())
-        print("wrote", LANDMARK_FILE)
+        for path, fresh in committed_draws():
+            np.save(path, fresh())
+            print("wrote", path)

@@ -13,6 +13,11 @@ on the slots live on both sides; K2 rtol = atol = 1e-9 in float64 and 1e-4 in fl
 fused entry in float32 is judged against the float64 plain result,
 entry by entry in units of eps * sum|term| (`gram.rounding_ratios`): it
 may be at most 4x as far off as the float32 plain version is.
+
+PARSAC and PnP are plain PyTorch on the card (no kernel of their own):
+their card tests hold the scores and per-bin sums to the CPU at 1e-12
+and to themselves bit for bit on repeat, and the PnP DLT and refine to
+the CPU at 1e-9.
 """
 
 import numpy as np
@@ -393,3 +398,97 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev, pair):
         klt.track_level(img, img, img, img, pts, pts, ok, **KW, search=128)
     with pytest.raises(ValueError, match="must be on"):
         klt.track_level(img, img, img, img, pts.cpu(), pts, ok, **KW)
+
+
+def _pnp_inputs(seed=0, N=256):
+    """A seeded PnP problem with a shifted cluster (a dynamic object),
+    the valid prefix, track lengths and bin confidences."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform([-3.0, -2.0, 4.0], [3.0, 2.0, 9.0], (N, 3))
+    x = X[:, :2] / X[:, 2:3] + rng.normal(0, 1e-3, (N, 2))
+    x[x[:, 0] > 0.15] += [0.03, -0.02]
+    return (X, x, rng.integers(0, 25, N), np.eye(4), rng.uniform(0, 1, 400),
+            np.arange(N) < 200)
+
+
+def _imu_pnp(device, inputs, idx=None):
+    from xrslam_tpu_torch.ransac import pnp
+
+    X, x, lens, prior, conf, valid = (torch.as_tensor(a, device=device) for a in inputs)
+    gen = torch.Generator(device=device).manual_seed(648)
+    return pnp.find_pnp_matrix_parsac_imu(gen, X, x, lens, prior, conf, 0.2, valid=valid,
+                                          threshold=1.0 / 450.0, norm_scale=1.5, idx=idx)
+
+
+def test_parsac_scoring_on_the_card(dev):
+    """PARSAC's per-bin sums, weights and scores on the card against the
+    CPU (1e-12) and bit-equal on repeat; IMU-PARSAC PnP bit-equal on
+    repeat and, on the card's minimal samples, equal to the CPU (T 1e-9,
+    masks and counts exactly, confidences 1e-12)."""
+    from xrslam_tpu_torch.ransac import core, parsac
+
+    X, x, lens, prior, conf, valid = inputs = _pnp_inputs()
+    rng = np.random.default_rng(1)
+    masks = rng.uniform(size=(256, len(x))) < 0.6
+
+    def scores(device):
+        pts = torch.as_tensor(x, device=device)
+        v = torch.as_tensor(valid, device=device)
+        b = parsac.bucket_points(pts, 1.5)
+        cnt, has = parsac._bin_stats(b, v, torch.float64)
+        w = parsac.point_weights(b, torch.as_tensor(conf, device=device), v)
+        lw = torch.full((400,), 0.5, dtype=torch.float64, device=device)
+        s, c = parsac.parsac_score(torch.as_tensor(masks, device=device), v, b,
+                                   parsac.bin_locations(1.5, device=device), cnt, has, lw)
+        return cnt, w, s, c
+
+    on_card, again, cpu = scores(dev), scores(dev), scores(torch.device("cpu"))
+    for a, b, c in zip(on_card, again, cpu):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), c.numpy(), rtol=0, atol=1e-12)
+
+    a, b = _imu_pnp(dev, inputs), _imu_pnp(dev, inputs)
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+    gen = torch.Generator(device=dev).manual_seed(648)
+    pts = torch.as_tensor(x, device=dev)
+    vd = torch.as_tensor(valid, device=dev)
+    w = parsac.point_weights(parsac.bucket_points(pts, 1.5),
+                             torch.as_tensor(conf, device=dev), vd)
+    idx = core.sample_minimal(gen, 256, len(x), 6, vd, w)
+    ref = _imu_pnp(torch.device("cpu"), inputs, idx=idx.cpu())
+    np.testing.assert_allclose(a[0].cpu().numpy(), ref[0].numpy(), rtol=0, atol=1e-9)
+    assert torch.equal(a[1].cpu(), ref[1]) and int(a[2]) == int(ref[2])
+    np.testing.assert_allclose(a[3].cpu().numpy(), ref[3].numpy(), rtol=0, atol=1e-12)
+    assert bool(a[4]) and bool(ref[4])
+
+
+def test_pnp_dlt_and_refine_on_the_card(dev):
+    """solve_pnp_dlt (256 batched minimal problems) and refine_pose_pnp
+    on the card against the CPU: 1e-9."""
+    from xrslam_tpu_torch.geometry import lie
+    from xrslam_tpu_torch.ransac import pnp
+
+    X, x, *_ = _pnp_inputs(2)
+    rng = np.random.default_rng(3)
+    idx = np.stack([rng.choice(200, 6, replace=False) for _ in range(256)])
+    out = pnp.solve_pnp_dlt(torch.as_tensor(X[idx], device=dev),
+                            torch.as_tensor(x[idx], device=dev))
+    ref = pnp.solve_pnp_dlt(torch.as_tensor(X[idx]), torch.as_tensor(x[idx]))
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-9)
+
+    q_true = lie.quat_normalize(torch.tensor([0.9, 0.1, -0.2, 0.15], dtype=torch.float64))
+    p_true = torch.tensor([0.3, -0.2, 0.5], dtype=torch.float64)
+    Xw = torch.as_tensor(X[:64])
+    y = (Xw - p_true) @ lie.quat_to_matrix(q_true)
+    b = y / torch.linalg.vector_norm(y, dim=1, keepdim=True)
+    valid = torch.ones(64, dtype=torch.bool)
+    W = torch.eye(2, dtype=torch.float64) * 450.0 / 0.5 ** 0.5
+    q0 = lie.quat_normalize(lie.quat_mul(q_true, lie.expmap(
+        torch.tensor([0.05, -0.03, 0.04], dtype=torch.float64))))
+    p0 = p_true + torch.tensor([0.1, -0.08, 0.12], dtype=torch.float64)
+    args = (q0, p0, Xw, b, valid, W)
+    q_c, p_c = pnp.refine_pose_pnp(*(a.to(dev) for a in args), iters=10)
+    q_h, p_h = pnp.refine_pose_pnp(*args, iters=10)
+    np.testing.assert_allclose(q_c.cpu().numpy(), q_h.numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(p_c.cpu().numpy(), p_h.numpy(), rtol=0, atol=1e-9)
+    assert float(torch.linalg.vector_norm(p_h - p_true)) < 1e-6

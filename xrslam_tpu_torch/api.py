@@ -10,11 +10,10 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
-import torch
 
 from .config import Config, load_config
 from .core import nputil
-from .core.detail import VIOPipeline
+from .core.detail import VIOPipeline, check_supported, compute_device
 from .frontend.tracker import KLTFeatureTracker
 from .utils.timing import StageTimes
 
@@ -66,22 +65,21 @@ class IMUBias:
 class XRSLAM:
     """One VIO engine instance on `device`, a torch device. It runs on
     the card ("cuda") unless the caller asks for "cpu"; without a CUDA
-    device the default raises, nothing falls back to the CPU."""
+    device the default raises, nothing falls back to the CPU. A config
+    asking for a feature the port does not have yet
+    (`visual_localization_enable`) raises NotImplementedError."""
 
     def __init__(self, slam_config_path: Optional[str] = None,
                  device_config_path: Optional[str] = None,
                  config: Optional[Config] = None, *, device="cuda",
                  capacity: int = 256):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                'XRSLAM runs on a CUDA device by default and none is available; '
-                'pass device="cpu" to run on the CPU')
+        device = compute_device(device)
         if config is None:
             if slam_config_path and device_config_path:
                 config = load_config(slam_config_path, device_config_path)
             else:
                 config = Config()
+        check_supported(config)
         self.config = config
         self.device = device
         self.times = StageTimes()

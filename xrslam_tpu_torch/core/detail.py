@@ -3,12 +3,20 @@ path of `xrslam_tpu/core/detail.py`):
 
   - gyroscope and accelerometer streams are paired by interpolating the
     gyro to each accelerometer timestamp,
-  - camera frames wait until the IMU stream has passed them,
+  - camera frames (images, or bearings with track hints for the
+    `SyntheticTracker`) wait until the IMU stream has passed them,
   - every IMU sample yields an output pose forward-propagated from the
     last optimized state,
   - frames go to the feature tracker, then to the Initializer until it
     succeeds and to the SlidingWindowTracker after; a tracking failure
-    resets to initialization.
+    resets to initialization,
+  - with `visual_pnp_enable`, every tracked frame gets a pose-only PnP
+    against the backend's landmarks, published as the latest state (the
+    camera-rate pose path; the backend may run at a reduced rate,
+    `sliding_window_tracker_frequent`).
+
+Visual localization (`visual_localization_enable`) is not ported yet
+and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..frontend.tracker import detect_no_translation
+from ..ransac import pnp as pnp_mod
 from ..utils.timing import StageTimes
 from . import nputil
 from .initializer import Initializer
@@ -36,14 +46,35 @@ class OutputPose:
     p: np.ndarray
 
 
-class VIOPipeline:
-    """Push IMU + camera samples, get poses."""
+def compute_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must exist (nothing
+    falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            'the port runs on a CUDA device by default and none is available; '
+            'pass device="cpu" to run on the CPU')
+    return device
 
-    def __init__(self, config: Config, tracker, device,
+
+def check_supported(config: Config) -> None:
+    """Raise for a configured feature the port does not have yet."""
+    if config.visual_localization_enable:
+        raise NotImplementedError(
+            "visual_localization_enable: the localizer is not ported yet "
+            "(ROADMAP queue 1, item #4)")
+
+
+class VIOPipeline:
+    """Push IMU + camera samples, get poses. Runs on the card unless
+    `device="cpu"` is asked for."""
+
+    def __init__(self, config: Config, tracker, device="cuda",
                  times: Optional[StageTimes] = None):
+        check_supported(config)
         self.config = config
         self.tracker = tracker
-        self.device = torch.device(device)
+        self.device = compute_device(device)
         self.times = times if times is not None else StageTimes()
         self.tracker_map = PipelineMap()
         self.initializer: Optional[Initializer] = Initializer(
@@ -60,6 +91,10 @@ class VIOPipeline:
         self._last_frame_t: Optional[float] = None
         self._last_taken: Optional[tuple] = None
         self._frame_count = 0
+        # camera-rate PnP: tracker-track-id -> landmark world point, and
+        # the number of frames whose PnP pose was published
+        self._keymap: dict = {}
+        self.pnp_frames = 0
 
     # ------------------------------------------------------------------
     def track_gyroscope(self, t: float, w) -> Optional[OutputPose]:
@@ -99,12 +134,27 @@ class VIOPipeline:
         self._flush_frames()
 
     # ------------------------------------------------------------------
+    def track_camera(self, t: float, bearings: np.ndarray,
+                     track_hint: Optional[np.ndarray] = None) -> None:
+        """Push a camera frame as its fixed-capacity (C,3) unit-bearing
+        array; `track_hint` (C,) carries the `SyntheticTracker`'s
+        correspondence ids, -1 = empty."""
+        f = self._make_frame(t, np.asarray(bearings, dtype=float))
+        f._hint = track_hint
+        self.frame_pending.append(f)
+        self._flush_frames()
+
     def track_camera_image(self, t: float, image: np.ndarray) -> None:
         """Push a grayscale image ((H,W) float32 in [0,1]); the tracker
         fills the keypoint slots when the frame is processed."""
+        f = self._make_frame(t, np.zeros((self.tracker.capacity, 3)))
+        f._image = np.asarray(image, dtype=np.float32)
+        self.frame_pending.append(f)
+        self._flush_frames()
+
+    def _make_frame(self, t: float, bearings: np.ndarray) -> FrameRec:
         cfg = self.config
-        cap = self.tracker.capacity
-        f = FrameRec(
+        return FrameRec(
             id=new_frame_id(), t=t,
             q=np.array([1.0, 0, 0, 0]), p=np.zeros(3), v=np.zeros(3),
             bg=cfg.gyroscope_bias.copy(), ba=cfg.accelerometer_bias.copy(),
@@ -117,12 +167,9 @@ class VIOPipeline:
                 cfg.camera_intrinsic[0, 0] / np.sqrt(cfg.keypoint_noise_cov[0, 0]),
                 cfg.camera_intrinsic[1, 1] / np.sqrt(cfg.keypoint_noise_cov[1, 1]),
             ]),
-            bearings=np.zeros((cap, 3)),
-            track_ids=np.full((cap,), -1, dtype=np.int64),
+            bearings=bearings,
+            track_ids=np.full((bearings.shape[0],), -1, dtype=np.int64),
         )
-        f._image = np.asarray(image, dtype=np.float32)
-        self.frame_pending.append(f)
-        self._flush_frames()
 
     def _flush_frames(self):
         while self.frame_pending and self.last_imu_t >= self.frame_pending[0].t:
@@ -154,6 +201,9 @@ class VIOPipeline:
         self.tracker_map.attach_frame(frame)
         with self.times.stage("feature_tracker_time"):
             self.tracker.track_frame(self.tracker_map, frame)
+        if self.swt is not None and self.config.visual_pnp_enable:
+            with self.times.stage("visual_pnp_time"):
+                self._solve_pnp_highrate(frame)
         cap = (self.config.feature_tracker_max_frames if self.swt
                else self.config.feature_tracker_max_init_frames)
         while len(self.tracker_map.frames) > cap:
@@ -188,6 +238,71 @@ class VIOPipeline:
                           bg=bg.copy(), ba=ba.copy())
         self._prop_cache = None
         self._imu_since_opt = [s for s in self._imu_since_opt if s[0] > t]
+        if self.config.visual_pnp_enable:
+            self._refresh_keymap()
+
+    # ------------------------------------------------------------------
+    # camera-rate visual PnP pose path
+    # ------------------------------------------------------------------
+    def _refresh_keymap(self):
+        """Mirror the backend's triangulated, non-outlier landmarks into a
+        tracker-track-id -> world-point table."""
+        keymap = {}
+        swt_map = self.swt.map
+        tframes = {f.id: f for f in self.tracker_map.frames}
+        for sf in swt_map.all_frames():
+            tf = tframes.get(sf.id)
+            if tf is None:
+                continue
+            for k in np.nonzero(sf.track_ids >= 0)[0]:
+                wtr = swt_map.tracks.get(int(sf.track_ids[k]))
+                if (wtr is None or not (wtr.valid and wtr.triangulated)
+                        or wtr.p_w is None or wtr.outlier):
+                    continue
+                ttid = int(tf.track_ids[k])
+                if ttid >= 0:
+                    keymap[ttid] = wtr.p_w
+        self._keymap = keymap
+
+    def _solve_pnp_highrate(self, frame: FrameRec):
+        """Pose-only PnP of the newest tracked frame against the keymap
+        landmarks (`pnp.refine_pose_pnp` from the IMU-propagated pose),
+        published as the latest output state."""
+        cfg = self.config
+        prop = self._propagate_full(frame.t)
+        if prop is None:
+            return
+        _, q_b, p_b, v_b = prop
+        C = frame.track_ids.shape[0]
+        X = np.zeros((C, 3))
+        valid = np.zeros((C,), dtype=bool)
+        for k in np.nonzero(frame.track_ids >= 0)[0]:
+            p_w = self._keymap.get(int(frame.track_ids[k]))
+            if p_w is not None:
+                X[k] = p_w
+                valid[k] = True
+        if valid.sum() < cfg.visual_pnp_min_landmarks:
+            return
+        q_wc = nputil.quat_mul(q_b, frame.q_bc)
+        p_wc = p_b + nputil.quat_rotate(q_b, frame.p_bc)
+        dev = self.device
+        q_wc2, p_wc2 = pnp_mod.refine_pose_pnp(
+            torch.as_tensor(q_wc, device=dev), torch.as_tensor(p_wc, device=dev),
+            torch.as_tensor(X, device=dev), torch.as_tensor(frame.bearings, device=dev),
+            torch.as_tensor(valid, device=dev),
+            torch.as_tensor(frame.sqrt_inv_cov2, device=dev),
+            iters=cfg.solver_iteration_limit)
+        qp = torch.cat([q_wc2, p_wc2]).cpu().numpy()    # one read
+        q_b2 = nputil.quat_normalize(
+            nputil.quat_mul(qp[:4], nputil.quat_conj(frame.q_bc)))
+        p_b2 = qp[4:] - nputil.quat_rotate(q_b2, frame.p_bc)
+        frame.q, frame.p, frame.v = q_b2, p_b2, v_b.copy()
+        s = self._prop
+        self._prop = dict(t=frame.t, q=q_b2, p=p_b2, v=v_b,
+                          bg=s["bg"].copy(), ba=s["ba"].copy())
+        self._prop_cache = None
+        self._imu_since_opt = [x for x in self._imu_since_opt if x[0] > frame.t]
+        self.pnp_frames += 1
 
     # ------------------------------------------------------------------
     def predict_pose(self, t: float) -> Optional[OutputPose]:
@@ -225,3 +340,61 @@ class VIOPipeline:
     @property
     def state(self) -> str:
         return "tracking" if self.swt is not None else "initializing"
+
+
+class SyntheticTracker:
+    """Feature tracker fed by ground-truth correspondences: the frame's
+    `_hint` array (`VIOPipeline.track_camera`) holds a persistent
+    synthetic track id per keypoint slot; keypoints sharing an id across
+    frames join the same map track.
+
+    With a `config`, it also runs the image tracker's FT_NO_TRANSLATION
+    detector (`frontend.tracker.detect_no_translation`, rotation RANSAC
+    + misalignment percentile) over the matched bearings, with a
+    `torch.Generator` on `device` (the card unless "cpu" is asked
+    for)."""
+
+    def __init__(self, config: Optional[Config] = None, device="cuda"):
+        self._id_map = {}
+        self._prev: Optional[FrameRec] = None
+        self.config = config
+        self.device = compute_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(0 if config is None else int(config.random))
+
+    def track_frame(self, tracker_map: PipelineMap, frame: FrameRec) -> None:
+        hint = getattr(frame, "_hint", None)
+        if hint is None:
+            return
+        for k in np.nonzero(hint >= 0)[0]:
+            h = int(hint[k])
+            tid = self._id_map.get(h)
+            tr = tracker_map.tracks.get(tid) if tid is not None else None
+            if tr is None:
+                tr = tracker_map.get_track(frame, int(k), create=True)
+                self._id_map[h] = tr.id
+            else:
+                tracker_map.add_observation(tr, frame, int(k))
+            tr.life += 1
+
+        prev = self._prev
+        if self.config is not None and prev is not None:
+            C = frame.bearings.shape[0]
+            bp = np.zeros((C, 3))
+            bp[:, 2] = 1.0
+            bn = bp.copy()
+            valid = np.zeros((C,), dtype=bool)
+            i = 0
+            for k in np.nonzero(frame.track_ids >= 0)[0]:
+                tr = tracker_map.tracks.get(int(frame.track_ids[k]))
+                kp = tr.obs.get(prev.id) if tr is not None else None
+                if kp is None:
+                    continue
+                bp[i] = prev.bearings[kp]
+                bn[i] = frame.bearings[k]
+                valid[i] = True
+                i += 1
+            if valid.sum() >= 8 and detect_no_translation(
+                    self.generator, bp, bn, valid, self.config):
+                frame.no_translation = True
+        self._prev = frame

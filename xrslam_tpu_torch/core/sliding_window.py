@@ -1,7 +1,9 @@
-"""Sliding-window VIO backend (port of the synchronous, PARSAC-off path
-of `xrslam_tpu/core/sliding_window.py`).
+"""Sliding-window VIO backend (port of the synchronous path of
+`xrslam_tpu/core/sliding_window.py`).
 
   track():
+    [parsac_flag] judge_track_status, then update_track_status when the
+               judge returns True (IMU-PARSAC dynamic-outlier rejection)
     keyframe decision (pure), then
     keyframe:  localize → inject → triangulate candidates → full-window
                VI-BA → landmark gates (solve_keyframe_chain), write-back,
@@ -9,7 +11,9 @@ of `xrslam_tpu/core/sliding_window.py`).
     subframe:  localize + subwindow refine (solve_chained), write-back
 
 Every write-back is applied immediately (the port has no deferred
-write-back pipeline).
+write-back pipeline). The PARSAC stage reads the device at most twice a
+frame: the judge's inlier mask together with the IMU-predicted pose, and
+all of update_track_status's masks stacked.
 """
 
 from __future__ import annotations
@@ -27,10 +31,14 @@ from ..estimation.solver import (SolveOptions, solve_chained,
 from ..estimation.window import MargPrior
 from ..geometry import lie
 from ..imu import preintegration as pre
+from ..ransac import parsac as parsac_mod
+from ..ransac import pnp as pnp_mod
+from ..ransac import stereo as stereo_mod
 from ..utils.timing import StageTimes
 from . import nputil
 from .map import FrameRec, PipelineMap
-from .window_builder import extract_window, write_back
+from .window_builder import (extract_window, interval_samples, needed_imu_cap,
+                             write_back)
 
 
 def _predict_slot(state, data, idx: int):
@@ -78,6 +86,33 @@ class SlidingWindowTracker:
         self.marg: Optional[MargPrior] = None
         self._pred_frame: Optional[FrameRec] = None
         self._last_window = None
+        # PARSAC state: the two bin-confidence vectors live on the device
+        # across frames (the 2D-2D essential PARSAC keeps its own), the
+        # draws come from a generator of their own, and the tracker map
+        # receives the static-tag cross-propagation
+        self.bin_conf = parsac_mod.initial_bin_confidences(device=self.device)
+        self.bin_conf_2d2d = parsac_mod.initial_bin_confidences(device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(config.random))
+        self.m_th = 0.0
+        self._tracker_map: Optional[PipelineMap] = None
+        self._pred_parsac = None
+        self.stats = {
+            "tracks_unstatic": 0,     # tracks losing TT_STATIC via PARSAC
+            "judge_calls": 0,         # judge_track_status calls
+            "judge_true": 0,          # ... that returned True
+            "judge_prior_ok": 0,      # ... whose IMU-PARSAC passed the prior gate
+            # ... refused by a gate: < 20 triangulated tracks, < 40 of them
+            # matched to the keyframe, < 20 PnP inliers or < 20 outliers
+            # among those, outliers' median epipolar distance < 2x the
+            # inliers'
+            "judge_refused_points": 0,
+            "judge_refused_matches": 0,
+            "judge_refused_inliers": 0,
+            "judge_refused_outliers": 0,
+            "judge_refused_ambiguous": 0,
+            "parsac_host_reads": 0,   # device -> host reads in the PARSAC stage
+        }
 
     def _extract(self, frames, K_slots, **kw):
         return extract_window(self.map, frames, K_slots, self.L_slots,
@@ -100,6 +135,7 @@ class SlidingWindowTracker:
         """Pull the new frame from the tracker map: clone it, splice the
         IMU samples of skipped frames, extend tracks continuing from the
         window's latest frame, stage the IMU prediction."""
+        self._tracker_map = tracker_map
         frame_i = self.last_frame_chain()
         idx_i = tracker_map.frame_index_by_id(frame_i.id)
         idx_j = tracker_map.frame_index_by_id(frame_id)
@@ -130,18 +166,81 @@ class SlidingWindowTracker:
             tid = int(new_j.track_ids[k])
             if tid in self.map.tracks:
                 self.map.tracks[tid].obs[new_j.id] = int(k)
-        # the prediction is composed on the device from the extraction's
-        # own preintegration (_apply_pred); host values hold the
-        # previous frame's state until the write-back
+        # host values hold the previous frame's state until the
+        # prediction lands: without PARSAC it is composed on the device
+        # from the extraction's own preintegration (_apply_pred); with
+        # PARSAC it is staged here and lands with the judge's mask
         new_j.bg = frame_i.bg.copy()
         new_j.ba = frame_i.ba.copy()
         new_j.q, new_j.p = frame_i.q.copy(), frame_i.p.copy()
         new_j.v = frame_i.v.copy()
-        self._pred_frame = new_j
+        self._pred_parsac = None
+        if self.config.parsac_flag:
+            self._pred_parsac = self._stage_prediction(frame_i, new_j)
+        else:
+            self._pred_frame = new_j
         return True
+
+    def _stage_prediction(self, frame_i: FrameRec, frame_j: FrameRec):
+        """Integrate frame_j's IMU interval and predict its body pose on
+        the device (one upload). Returns (frame_j, q_b, p_b, v) on the
+        device, or None without IMU samples."""
+        t_buf, w_buf, a_buf, n, t0 = interval_samples(
+            [frame_j], needed_imu_cap([[frame_j]]))
+        if n == 0:
+            return None
+        # compose at the IMU, then back to body
+        q_i = nputil.quat_mul(frame_i.q, frame_i.q_bi)
+        p_i = frame_i.p + nputil.quat_rotate(frame_i.q, frame_i.p_bi)
+        t_d, w_d, a_d, te_d, qi_d, pi_d, vi_d, bg_d, ba_d, qbi_d, pbi_d = self._upload(
+            t_buf, w_buf, a_buf, [frame_j.t - t0], q_i, p_i, frame_i.v,
+            frame_i.bg, frame_i.ba, frame_j.q_bi, frame_j.p_bi)
+        d = pre.integrate(t_d, w_d, a_d, te_d[0], bg_d, ba_d, self.noise,
+                          count=n, compute_sqrt_inv=False)
+        qj, pj, vj, _, _ = pre.predict(qi_d, pi_d, vi_d, bg_d, ba_d, d)
+        q_b = lie.quat_normalize(lie.quat_mul(qj, lie.quat_conj(qbi_d)))
+        p_b = pj - lie.quat_rotate(q_b, pbi_d)
+        return frame_j, q_b, p_b, vj
+
+    def _upload(self, *arrays):
+        """Host arrays -> float64 device tensors of the same shapes, in
+        one host -> device copy."""
+        host = np.concatenate([np.asarray(a, dtype=np.float64).reshape(-1)
+                               for a in arrays])
+        flat = torch.as_tensor(host, device=self.device)
+        parts = torch.split(flat, [int(np.size(a)) for a in arrays])
+        return [x.reshape(np.shape(a)) for x, a in zip(parts, arrays)]
+
+    def _read(self, tensors):
+        """One device -> host read of several tensors (packed as float64);
+        returns numpy arrays, bool where the tensor was bool."""
+        self.stats["parsac_host_reads"] += 1
+        flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+        out = []
+        for t, a in zip(tensors, np.split(flat, np.cumsum([t.numel() for t in tensors])[:-1])):
+            a = a.reshape(tuple(t.shape))
+            out.append(a.astype(bool) if t.dtype == torch.bool else a)
+        return out
+
+    def _land_prediction(self, extra=None):
+        """Read the staged PARSAC prediction into its host record, with
+        the `extra` tensor in the same read; returns extra's value."""
+        pp, self._pred_parsac = self._pred_parsac, None
+        if pp is None:
+            return None if extra is None else self._read([extra])[0]
+        frame_j, q_b, p_b, vj = pp
+        out = self._read([q_b, p_b, vj] + ([] if extra is None else [extra]))
+        frame_j.q = nputil.quat_normalize(out[0])
+        frame_j.p, frame_j.v = out[1], out[2]
+        return None if extra is None else out[3]
 
     # ------------------------------------------------------------------
     def track(self) -> bool:
+        if self.config.parsac_flag:
+            with self.times.stage("parsac_time"):
+                if self.judge_track_status():
+                    self.stats["judge_true"] += 1
+                    self.update_track_status()
         verdict = self._keyframe_decision()
         if verdict != "subframe":
             with self.times.stage("bundle_adjustor_solve_time"):
@@ -527,3 +626,219 @@ class SlidingWindowTracker:
             opts = SolveOptions(iterations=self.config.solver_iteration_limit)
             variant = "subwindow"
         return state, data_r, meta, opts, variant, kf, saved
+
+    # ------------------------------------------------------------------
+    # PARSAC dynamic-object rejection
+    # ------------------------------------------------------------------
+    def _tracker_twin(self, frame: FrameRec) -> Optional[FrameRec]:
+        """The tracker map's frame with `frame`'s id (window frames are
+        clones, so keypoint indices align 1:1)."""
+        if self._tracker_map is None:
+            return None
+        oi = self._tracker_map.frame_index_by_id(frame.id)
+        return None if oi is None else self._tracker_map.frames[oi]
+
+    def judge_track_status(self) -> bool:
+        """IMU-PARSAC PnP of the new frame against the window's
+        landmarks, gated by the IMU-predicted prior pose, then the
+        epipolar ambiguity check against the last keyframe. When the
+        split is unambiguous it sets m_th and each track's outlier/static
+        tags (on both maps) and returns True."""
+        self.stats["judge_calls"] += 1
+        curr = self.map.frames[-1]
+        kf = self.map.frames[-2]
+        P3D, P2D, lens, kps = [], [], [], []
+        for k in np.nonzero(curr.track_ids >= 0)[0]:
+            tr = self.map.tracks.get(int(curr.track_ids[k]))
+            if tr is None or not (tr.valid and tr.triangulated) or tr.p_w is None:
+                continue
+            b = curr.bearings[k]
+            P2D.append(b[:2] / b[2])
+            P3D.append(tr.p_w)
+            lens.append(max(tr.life, 0))
+            kps.append(int(k))
+        if len(P2D) < 20:
+            self.stats["judge_refused_points"] += 1
+            self._land_prediction()  # the frame's pose still has to land
+            return False
+        N_CAP = 256
+        n = min(len(P2D), N_CAP)
+        X = np.zeros((N_CAP, 3))
+        x2 = np.zeros((N_CAP, 2))
+        ln = np.zeros((N_CAP,), dtype=np.int64)
+        X[:n] = np.stack(P3D)[:n]
+        x2[:n] = np.stack(P2D)[:n]
+        ln[:n] = np.asarray(lens)[:n]
+        valid = np.zeros((N_CAP,), dtype=bool)
+        valid[:n] = True
+
+        # one upload; the prior pose (world -> camera) is composed on the
+        # device from the staged prediction when there is one
+        pp = self._pred_parsac
+        host_pose = () if pp is not None and pp[0] is curr else (curr.q, curr.p)
+        X_d, x2_d, ln_d, valid_d, q_bc, p_bc, *pose = self._upload(
+            X, x2, ln, valid, curr.q_bc, curr.p_bc, *host_pose)
+        q_b, p_b = pose if pose else pp[1:3]
+        q_wc = lie.quat_mul(q_b, q_bc)
+        p_wc = p_b + lie.quat_rotate(q_b, p_bc)
+        Rcw = lie.quat_to_matrix(q_wc).T
+        prior_T = torch.eye(4, dtype=p_b.dtype, device=self.device)
+        prior_T[:3, :3] = Rcw
+        prior_T[:3, 3] = -(Rcw @ p_wc)
+
+        fu = curr.K[0, 0]
+        _, mask, _, self.bin_conf, ok = pnp_mod.find_pnp_matrix_parsac_imu(
+            self.generator, X_d, x2_d, ln_d, prior_T, self.bin_conf,
+            self.config.parsac_dynamic_probability, valid=valid_d > 0.5,
+            threshold=1.0 / fu, norm_scale=self.config.parsac_norm_scale)
+        # one read: the mask, the prior gate and the staged prediction
+        mask_ok = self._land_prediction(extra=torch.cat([mask, ok.reshape(1)]))
+        mask = mask_ok[:-1]
+        self.stats["judge_prior_ok"] += int(mask_ok[-1])
+
+        # epipolar ambiguity check between keyframe and current frame
+        # with the IMU-predicted relative pose
+        q_wc, p_wc = curr.camera_pose()
+        q_kfc, p_kfc = kf.camera_pose()
+        R_kf = nputil.quat_to_matrix(q_kfc)
+        R_cu = nputil.quat_to_matrix(q_wc)
+        Rrel = R_cu.T @ R_kf          # kf cam -> cur cam
+        trel = R_cu.T @ (p_kfc - p_wc)
+        tx = np.array([[0, -trel[2], trel[1]],
+                       [trel[2], 0, -trel[0]],
+                       [-trel[1], trel[0], 0]])
+        Kk, Kc = kf.K, curr.K
+        F = np.linalg.inv(Kk.T) @ (tx @ Rrel) @ np.linalg.inv(Kc)
+
+        sel_i, b1s, b2s = [], [], []
+        for i, k in enumerate(kps[:n]):
+            tr = self.map.tracks.get(int(curr.track_ids[k]))
+            kj = tr.obs.get(kf.id) if tr else None
+            if kj is None:
+                continue
+            sel_i.append(i)
+            b1s.append(kf.bearings[kj])
+            b2s.append(curr.bearings[k])
+        if len(sel_i) < 40:
+            self.stats["judge_refused_matches"] += 1
+            return False
+        b1s = np.stack(b1s)
+        b2s = np.stack(b2s)
+        p1 = (b1s / b1s[:, 2:3]) @ Kk.T
+        p2 = (b2s / b2s[:, 2:3]) @ Kc.T
+        l1 = p1 @ F.T
+        l2 = p2 @ F
+        d1 = np.abs(np.sum(p2 * l1, axis=1)) / np.maximum(
+            np.hypot(l1[:, 0], l1[:, 1]), 1e-12)
+        d2 = np.abs(np.sum(p1 * l2, axis=1)) / np.maximum(
+            np.hypot(l2[:, 0], l2[:, 1]), 1e-12)
+        d = d1 + d2
+        m_sel = mask[np.asarray(sel_i, dtype=np.intp)]
+        in_d = d[m_sel]
+        out_d = d[~m_sel]
+        if len(in_d) < 20 or len(out_d) < 20:
+            self.stats["judge_refused_inliers" if len(in_d) < 20
+                       else "judge_refused_outliers"] += 1
+            return False
+        th1 = float(np.median(in_d))
+        th2 = float(np.median(out_d))
+        if th2 < th1 * 2:
+            self.stats["judge_refused_ambiguous"] += 1
+            return False
+        self.m_th = 0.5 * (th1 + th2)
+        # refresh both maps with the fresh per-frame verdict: without the
+        # positive (inlier -> static) direction, one false PnP rejection
+        # would ratchet a static track non-static forever through the
+        # cross-propagation in update_track_status
+        old_frame = self._tracker_twin(curr)
+        for i, k in enumerate(kps[:n]):
+            tr = self.map.tracks.get(int(curr.track_ids[k]))
+            if tr is None:
+                continue
+            old_tr = None
+            if old_frame is not None and old_frame.track_ids[k] >= 0:
+                old_tr = self._tracker_map.tracks.get(int(old_frame.track_ids[k]))
+            if mask[i]:
+                tr.outlier = False
+                tr.static = True
+                if old_tr is not None:
+                    old_tr.static = True
+            else:
+                tr.outlier = True
+                if tr.static:
+                    self.stats["tracks_unstatic"] += 1
+                tr.static = False
+                if old_tr is not None:
+                    old_tr.static = False
+        return True
+
+    def update_track_status(self):
+        """2D-2D essential PARSAC (32 hypotheses) of the new frame against
+        each of the last `parsac_keyframe_check_size` keyframes; tracks
+        flagged as outliers in more than half of outlier_th and 80% of
+        their matches lose TT_STATIC, and the static tag is
+        cross-propagated both ways between the window track and the
+        tracker-map track. The bin confidences chain on the device from
+        call to call; every mask comes back in one read."""
+        curr = self.map.frames[-1]
+        n_check = self.config.parsac_keyframe_check_size
+        start = max(len(self.map.frames) - 1 - n_check, 0)
+        C = curr.track_ids.shape[0]
+        outlier_cnt = np.zeros(C, dtype=int)
+        match_cnt = np.zeros(C, dtype=int)
+        N_CAP = 256
+        host = []
+        for i in range(start, len(self.map.frames) - 1):
+            fr = self.map.frames[i]
+            p1, p2, idxs = [], [], []
+            for ki in np.nonzero(fr.track_ids >= 0)[0]:
+                tr = self.map.tracks.get(int(fr.track_ids[ki]))
+                kj = tr.obs.get(curr.id) if tr else None
+                if kj is None:
+                    continue
+                b1 = fr.bearings[ki]
+                b2 = curr.bearings[kj]
+                p1.append(b1[:2] / b1[2])
+                p2.append(b2[:2] / b2[2])
+                idxs.append(int(kj))
+            if len(p1) < 10:
+                continue
+            nn = min(len(p1), N_CAP)
+            a = np.zeros((3, N_CAP, 3))     # x1, x2 (z = 1) and the valid mask
+            a[:2, :, 2] = 1.0
+            a[0, :nn, :2] = np.stack(p1)[:nn]
+            a[1, :nn, :2] = np.stack(p2)[:nn]
+            a[2, :nn, 0] = 1.0
+            # m_th comes from judge_track_status (track() calls this only
+            # after it returned True)
+            host.append((a, self.m_th / fr.K[0, 0], nn, idxs))
+        if host:
+            masks = []
+            for a, (_, thr, _, _) in zip(self._upload(*[h[0] for h in host]), host):
+                _, mask, _, self.bin_conf_2d2d = stereo_mod.find_essential_matrix_parsac(
+                    self.generator, a[0], a[1], self.bin_conf_2d2d,
+                    valid=a[2, :, 0] > 0.5, threshold=thr,
+                    norm_scale=self.config.parsac_norm_scale, n_hyp=32)
+                masks.append(mask)
+            for mask, (_, _, nn, idxs) in zip(self._read([torch.stack(masks)])[0], host):
+                for j in range(nn):
+                    match_cnt[idxs[j]] += 1
+                    if not mask[j]:
+                        outlier_cnt[idxs[j]] += 1
+
+        old_frame = self._tracker_twin(curr)
+        outlier_th = len(self.map.frames) // 2
+        for k in np.nonzero(curr.track_ids >= 0)[0]:
+            tr = self.map.tracks.get(int(curr.track_ids[k]))
+            if tr is None:
+                continue
+            if outlier_cnt[k] > outlier_th / 2 and outlier_cnt[k] > 0.8 * match_cnt[k]:
+                if tr.static:
+                    self.stats["tracks_unstatic"] += 1
+                tr.static = False
+            # static-tag cross-propagation window <-> tracker map
+            if old_frame is not None and old_frame.track_ids[k] >= 0:
+                old_tr = self._tracker_map.tracks.get(int(old_frame.track_ids[k]))
+                if old_tr is not None and (not old_tr.static or not tr.static):
+                    tr.static = False
+                    old_tr.static = False

@@ -1,14 +1,16 @@
 """Synthetic VIO scene: smooth analytic trajectory, landmark cloud and
-ideal IMU (port of `wave_scene` and `euler_consistent` from
-`xrslam_tpu/io/synthetic.py`), and `reproj_window`, a seeded window for
-the reprojection factors alone.
+ideal IMU, a rigidly-moving object and the projection of both into the
+camera (port of `wave_scene`, `euler_consistent`, `moving_object`,
+`bearings_of_points` and `bearings_of` from `xrslam_tpu/io/synthetic.py`),
+and `reproj_window`, a seeded window for the reprojection factors alone.
 
 Velocity, acceleration and body rate come from `torch.func.jacfwd` of
 the analytic pose, as the JAX package takes them from `jax.jacfwd`.
-The landmarks of the JAX scene are drawn with `jax.random`, which torch
-cannot reproduce: `wave_scene` takes them as `landmarks=`, and the
-default scene (seed 3, 500 landmarks) reads the draw committed in
-`io/data/wave_seed3_l500.npy`.
+The landmarks and the object's points of the JAX scenes are drawn with
+`jax.random`, which torch cannot reproduce: `wave_scene` and
+`moving_object` take them as `landmarks=` / `local=`, and the draws the
+drives use are committed in `io/data` (`wave_seed3_l500.npy`,
+`wave_seed0_l96.npy`; `object_seed7_n80.npy`, the object's unit draw).
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from ..geometry import lie
 from ..imu import preintegration as pre
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-DEFAULT_LANDMARKS = {(3, 500): "wave_seed3_l500.npy"}
+DEFAULT_LANDMARKS = {(3, 500): "wave_seed3_l500.npy",
+                     (0, 96): "wave_seed0_l96.npy"}
+# moving_object's jax.random.uniform draw on [0, 1), keyed (seed, n_points)
+DEFAULT_OBJECT_DRAWS = {(7, 80): "object_seed7_n80.npy"}
 
 
 class Scene(NamedTuple):
@@ -41,14 +46,18 @@ class Scene(NamedTuple):
     imu_a: torch.Tensor      # (F,S,3) accel (body, includes -gravity)
 
 
+def _committed(table: dict, seed: int, n: int, what: str) -> np.ndarray:
+    name = table.get((seed, n))
+    if name is None:
+        raise ValueError(f"no committed {what} draw for seed={seed}, n={n}: "
+                         f"pass it in")
+    return np.load(os.path.join(DATA_DIR, name))
+
+
 def committed_landmarks(seed: int, n_landmarks: int) -> np.ndarray:
     """The JAX package's landmark draw for (seed, n_landmarks), read
     from io/data; raises for a draw that is not committed."""
-    name = DEFAULT_LANDMARKS.get((seed, n_landmarks))
-    if name is None:
-        raise ValueError(f"no committed landmark draw for seed={seed}, "
-                         f"n_landmarks={n_landmarks}: pass landmarks=")
-    return np.load(os.path.join(DATA_DIR, name))
+    return _committed(DEFAULT_LANDMARKS, seed, n_landmarks, "landmark")
 
 
 def wave_scene(n_frames: int = 60, n_landmarks: int = 500, cam_hz: float = 20.0,
@@ -130,6 +139,51 @@ def euler_consistent(scene: Scene, noise=None) -> Scene:
         ps.append(p)
         vs.append(v)
     return scene._replace(q=torch.stack(qs), p=torch.stack(ps), v=torch.stack(vs))
+
+
+def moving_object(scene: Scene, n_points: int = 48, center=(0.8, 0.8, 1.2),
+                  vel=(-0.25, 0.15, 0.05), omega_obj=(0.0, 0.0, 0.4),
+                  extent: float = 0.45, seed: int = 7, local=None,
+                  dtype=torch.float64) -> torch.Tensor:
+    """Per-frame positions (F, n_points, 3) of a rigidly-moving object: a
+    point cluster translating at `vel` and spinning at `omega_obj`, the
+    dynamic-outlier scene of RD-VIO. Its tracks are consistent frame to
+    frame but violate the static-world model. `local` (n_points, 3)
+    gives the cluster's points; by default they are the JAX draw for
+    (seed, n_points) from io/data, scaled to [-extent, extent) with the
+    arithmetic of `jax.random.uniform`."""
+    if local is None:
+        u = torch.as_tensor(_committed(DEFAULT_OBJECT_DRAWS, seed, n_points,
+                                       "object"), dtype=dtype)
+        local = torch.clamp(u * (extent - (-extent)) + (-extent), min=-extent)
+    local = torch.as_tensor(local, dtype=dtype)
+    c0, v, w = (torch.as_tensor(a, dtype=dtype) for a in (center, vel, omega_obj))
+    t = scene.t.to(dtype)
+    R = lie.quat_to_matrix(lie.expmap(w[None, :] * t[:, None]))     # (F,3,3)
+    return c0 + v * t[:, None, None] + torch.einsum("lj,fij->fli", local, R)
+
+
+def bearings_of_points(q, p, pts, q_bc, p_bc, fov_cos: float = 0.2):
+    """Project per-frame world points pts (F,L,3) into each frame's
+    camera (body poses q (F,4), p (F,3); extrinsics q_bc, p_bc). Returns
+    (bearings (F,L,3) unit camera-frame vectors, mask (F,L): in front of
+    the camera and inside the field-of-view cone)."""
+    x_b = lie.quat_rotate_inv(q[:, None, :], pts - p[:, None, :])
+    x_c = lie.quat_rotate_inv(q_bc, x_b - p_bc)
+    norm = torch.linalg.vector_norm(x_c, dim=-1)
+    bearings = x_c / torch.clamp(norm, min=1e-12)[..., None]
+    mask = (x_c[..., 2] > 0.2) & (bearings[..., 2] > fov_cos)
+    return bearings, mask
+
+
+def bearings_of(scene: Scene, q_bc, p_bc, frame_idx=None, fov_cos: float = 0.2):
+    """Project the scene's landmarks into every (selected) frame's
+    camera; returns (bearings (F,L,3), mask (F,L)) as
+    `bearings_of_points`."""
+    q = scene.q if frame_idx is None else scene.q[frame_idx]
+    p = scene.p if frame_idx is None else scene.p[frame_idx]
+    pts = scene.landmarks.expand((q.shape[0],) + tuple(scene.landmarks.shape))
+    return bearings_of_points(q, p, pts, q_bc, p_bc, fov_cos)
 
 
 def reproj_window(K: int, L: int, seed: int = 0, n_guard: int = 0,

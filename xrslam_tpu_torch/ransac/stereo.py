@@ -1,6 +1,6 @@
 """Two-view robust estimators: essential (5-pt), homography (4-pt) and
-rotation (2-pt) RANSAC (port of `xrslam_tpu/ransac/stereo.py`, without
-the PARSAC variants).
+rotation (2-pt) RANSAC and the PARSAC variants of the first two (port
+of `xrslam_tpu/ransac/stereo.py`).
 
 Thresholds: essential 2·3.84·σ² on the symmetric squared epipolar
 error; homography 2·5.99·σ² on the symmetric squared transfer error;
@@ -18,14 +18,31 @@ from ..geometry import essential as ess
 from ..geometry import homography as homo
 from ..geometry import wahba
 from . import core
+from . import parsac as parsac_mod
 
 CHI2_1DOF = 3.84
 CHI2_2DOF = 5.99
 
 
-def _valid(valid, n, device):
-    return torch.ones((n,), dtype=torch.bool, device=device) if valid is None \
-        else valid
+def _essential_solver(idx, x1, x2):
+    return ess.solve_essential_5pt(x1[idx], x2[idx])      # ((H,R,3,3), (H,R))
+
+
+def _essential_errors(model, x1, x2):
+    E, rv = model                                           # (H,R,3,3), (H,R)
+    errs = (ess.essential_geometric_error(E, x1, x2)
+            + ess.essential_geometric_error(E.transpose(-1, -2), x2, x1))
+    return torch.where(rv[..., None], errs, float("inf"))
+
+
+def _homography_solver(idx, p1, p2):
+    return homo.solve_homography_4pt(p1[idx], p2[idx])
+
+
+def _homography_errors(Hs, p1, p2):
+    Hi, _ = torch.linalg.inv_ex(Hs)
+    return (homo.homography_geometric_error(Hs, p1, p2)
+            + homo.homography_geometric_error(Hi, p2, p1))
 
 
 def find_essential_matrix(generator, x1, x2, valid=None, threshold: float = 1.0,
@@ -33,18 +50,11 @@ def find_essential_matrix(generator, x1, x2, valid=None, threshold: float = 1.0,
     """5-pt essential RANSAC; x1, x2 (N,3) homogeneous normalized points
     (z=1). Returns (E, inlier_mask, count)."""
     N = x1.shape[0]
-    valid = _valid(valid, N, x1.device)
     thr = 2.0 * CHI2_1DOF * threshold * threshold
-    if idx is None:
-        idx = core.sample_minimal(generator, n_hyp, N, 5, valid)
-    E_all, root_valid = ess.solve_essential_5pt(x1[idx], x2[idx])
-    E_flat = E_all.reshape(-1, 3, 3)
-    rv = root_valid.reshape(-1)
-    errors = (ess.essential_geometric_error(E_flat, x1, x2)
-              + ess.essential_geometric_error(E_flat.transpose(-1, -2), x2, x1))
-    errors = torch.where(rv[:, None], errors, float("inf"))
-    best, mask, count = core.select_best(errors, thr, valid)
-    return E_flat[best], mask, count
+    model, mask, count = core.ransac(
+        generator, _essential_solver, _essential_errors, (x1, x2), N, 5, thr,
+        n_hyp=n_hyp, valid=core.all_valid(valid, N, x1.device), idx=idx)
+    return model[0], mask, count
 
 
 def find_homography_matrix(generator, p1, p2, valid=None,
@@ -52,16 +62,44 @@ def find_homography_matrix(generator, p1, p2, valid=None,
     """4-pt homography RANSAC; p1, p2 (N,2). Returns (H, inlier_mask,
     count)."""
     N = p1.shape[0]
-    valid = _valid(valid, N, p1.device)
     thr = 2.0 * CHI2_2DOF * threshold * threshold
-    if idx is None:
-        idx = core.sample_minimal(generator, n_hyp, N, 4, valid)
-    Hs = homo.solve_homography_4pt(p1[idx], p2[idx])
-    Hi, _ = torch.linalg.inv_ex(Hs)
-    errors = (homo.homography_geometric_error(Hs, p1, p2)
-              + homo.homography_geometric_error(Hi, p2, p1))
-    best, mask, count = core.select_best(errors, thr, valid)
-    return Hs[best], mask, count
+    return core.ransac(generator, _homography_solver, _homography_errors,
+                       (p1, p2), N, 4, thr, n_hyp=n_hyp,
+                       valid=core.all_valid(valid, N, p1.device), idx=idx)
+
+
+def find_essential_matrix_parsac(generator, x1, x2, bin_conf, valid=None,
+                                 threshold: float = 1.0,
+                                 norm_scale: float = 1.0, n_hyp: int = 64,
+                                 idx=None):
+    """PARSAC 5-pt essential: the minimal solver and evaluator of
+    `find_essential_matrix` with spatial-bin-confidence weighted
+    sampling and coverage scoring; binning uses x2's normalized-plane
+    coordinates. x1, x2: (N,3) homogeneous z=1 points. Returns
+    (E, inlier_mask, count, new_bin_conf)."""
+    thr = 2.0 * CHI2_1DOF * threshold * threshold
+    model, mask, count, new_conf = parsac_mod.parsac(
+        generator, _essential_solver, _essential_errors, (x1, x2), x2[..., :2],
+        bin_conf, x1.shape[0], 5, thr, valid=valid, norm_scale=norm_scale,
+        n_hyp=n_hyp, idx=idx)
+    return model[0], mask, count, new_conf
+
+
+def find_homography_matrix_parsac(generator, p1, p2, bin_conf, valid=None,
+                                  threshold: float = 1.0,
+                                  norm_scale: float = 1.0, n_hyp: int = 128,
+                                  idx=None):
+    """PARSAC 4-pt homography; p1, p2 (N,2) normalized-plane points.
+    Returns (H, inlier_mask, count, new_bin_conf)."""
+    thr = 2.0 * CHI2_2DOF * threshold * threshold
+    return parsac_mod.parsac(
+        generator, _homography_solver, _homography_errors, (p1, p2), p2,
+        bin_conf, p1.shape[0], 4, thr, valid=valid, norm_scale=norm_scale,
+        n_hyp=n_hyp, idx=idx)
+
+
+def _rotation_solver(idx, b1, b2):
+    return wahba.solve_rotation(b1[idx], b2[idx])
 
 
 def find_rotation_matrix(generator, b1, b2, valid=None, threshold: float = 1.0,
@@ -69,11 +107,7 @@ def find_rotation_matrix(generator, b1, b2, valid=None, threshold: float = 1.0,
     """2-pt rotation RANSAC; b1, b2 (N,3) unit bearings, b2 ≈ R b1.
     Returns (R, inlier_mask, count)."""
     N = b1.shape[0]
-    valid = _valid(valid, N, b1.device)
     thr = CHI2_2DOF * threshold * threshold
-    if idx is None:
-        idx = core.sample_minimal(generator, n_hyp, N, 2, valid)
-    Rs = wahba.solve_rotation(b1[idx], b2[idx])
-    errors = wahba.rotation_angular_error(Rs, b1, b2)
-    best, mask, count = core.select_best(errors, thr, valid)
-    return Rs[best], mask, count
+    return core.ransac(generator, _rotation_solver, wahba.rotation_angular_error,
+                       (b1, b2), N, 2, thr, n_hyp=n_hyp,
+                       valid=core.all_valid(valid, N, b1.device), idx=idx)
