@@ -1,5 +1,6 @@
-"""CPU rehearsals of `chip_smoke.py`'s phases for K1's fused entry and
-the IMU-PARSAC repeat check.
+"""CPU rehearsals of `chip_smoke.py`'s phases for K1's fused entry, the
+IMU-PARSAC repeat check, and the dataset and localizer drives (phases 9
+and 10).
 
 `klt_track_phase` runs at 320x240 on CPU tensors with the kernel
 wrappers patched to their plain versions (the fused entry's stand-in
@@ -9,6 +10,11 @@ slot), the CUDA timers stubbed (the device timer returns 0.5, 0.2 and
 five-launch chain) and `torch.cuda.synchronize` a no-op. So its
 agreement checks, its repeat check and its bound arithmetic run here;
 only the card can build and time the kernel.
+
+Phases 9 and 10 run at 320x240 on 60 frames, the kernels' wrappers
+replaced by their plain versions that count a launch as the kernel's
+wrappers do, and torch's sync debug mode (CUDA only) a no-op: every
+check of the two phases runs here, at the rehearsal's frame counts.
 """
 
 import os
@@ -20,8 +26,19 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from xrslam_tpu_torch.estimation import gram  # noqa: E402
 from xrslam_tpu_torch.frontend import klt  # noqa: E402
 from xrslam_tpu_torch.kernels import build  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread per test process: the suite runs several side
+    by side, and torch's OpenMP pools oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_klt_track_phase_rehearsal(monkeypatch):
@@ -82,3 +99,44 @@ def test_parsac_repeat_phase_rehearsal(monkeypatch):
     res = chip_smoke.parsac_repeat_phase(torch.device("cpu"))
     assert res == {"T_err": 0.0, "conf_err": 0.0, "mask_equal": True,
                    "count_equal": True, "ok": True}
+
+
+def test_dataset_and_localizer_phases_rehearsal(monkeypatch, tmp_path):
+    from xrslam_tpu_torch.frontend import image as img_ops
+
+    scharr = img_ops.scharr
+
+    def k1(*args, **kw):
+        # the kernel computes its gradient windows itself: the plain
+        # version's image-wide Scharr calls are not the drive's
+        build.KLT_LEVEL.count(klt.ENTRY_TRACK)
+        counted, img_ops.scharr = img_ops.scharr, scharr
+        try:
+            return klt.track_keypoints_plain(*args, **kw)
+        finally:
+            img_ops.scharr = counted
+
+    def k2(state, data):
+        build.REPROJ_GRAM.count("reproj_factor_gram_launch")
+        return gram.reproj_factor_gram_plain(state, data)
+
+    monkeypatch.setattr(klt, "track_keypoints", k1)
+    monkeypatch.setattr(gram, "reproj_factor_gram", k2)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a, **k: None)
+    dev = torch.device("cpu")
+    res = chip_smoke.dataset_phase(dev, str(tmp_path / "euroc"), n_frames=60, width=320,
+                                   height=240, focal=260.0, min_tracked=20)
+    assert res["frames_tracked"] >= 20 and res["ate_m"] <= 0.25
+    assert res["depth_scale"] > 0 and res["depth_seeded"] > 0
+    assert res["launches"]["klt_level"] == res["frame_pairs_tracked"] == 59
+    assert res["entry_launches"]["reproj_gram"]["reproj_factor_gram_launch"] > 0
+    assert {"read_image_time", "read_depth_time", "decode_time"} <= set(res["stage_ms"])
+    assert res["frames_per_s_no_reader"] > res["frames_per_s"] > 0
+    assert res["cli"]["frames_tracked"] == 0  # 20 frames: still initializing
+    loc = chip_smoke.localizer_phase(dev, res, n_frames=60, min_tracked=20)
+    assert loc["registered"] and loc["global_err_m"] < 0.5 and loc["slam_frame_dist_m"] > 1.0
+    assert loc["ar_object"] > 0 and loc["ar_isolated"]
+    assert loc["http"]["registered"] and loc["http"]["T_err"] < 1e-9
+    assert loc["depth_keyframes"] > 0
+    # the 60th frame still waits for its IMU when the drive stops at it
+    assert loc["launches"]["klt_level"] == loc["frame_pairs_tracked"] == 58

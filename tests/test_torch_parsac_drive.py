@@ -23,7 +23,9 @@ on the CPU (the PARSAC-off path's bit-identity is
   rotation-RANSAC samples;
 - the camera-rate visual PnP publishes a pose on every tracked frame of
   `tests/test_visual_pnp.py`'s scene with the backend every 2nd frame;
-- `visual_localization_enable` raises NotImplementedError;
+- `visual_localization_enable` is accepted (the localizer is ported,
+  `tests/test_torch_localizer.py`), and raises ImportError without
+  Pillow rather than logging on every query;
 - `slow`: the dynamic-object scene through the JAX `VIOPipeline` and
   through the port, each held to `test_dynamic_object_parsac_e2e`'s
   criteria, the two ATEs within 0.05 m;
@@ -401,11 +403,39 @@ def test_visual_pnp_publishes_camera_rate_poses():
 
 
 def test_visual_localization_raises():
+    """The localizer is ported, so `visual_localization_enable` raises
+    only where the HTTP client cannot run: with Pillow (its JPEG
+    encoder) blocked, a configured server endpoint raises ImportError
+    at construction instead of logging a warning on every query."""
+    import subprocess
+
+    code = ("import sys; sys.modules['PIL'] = None\n"
+            "from xrslam_tpu_torch.core.detail import SyntheticTracker, VIOPipeline\n"
+            "from xrslam_tpu_torch.tools import object_scene as osc\n"
+            "cfg = osc.base_config(visual_localization_enable=True,"
+            " visual_localization_config_port=8000)\n"
+            "try:\n"
+            "    VIOPipeline(cfg, SyntheticTracker(device='cpu'), device='cpu')\n"
+            "except ImportError as e:\n"
+            "    print('raised', e.name)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "raised PIL"
+
+
+def test_visual_localization_accepted():
+    """`visual_localization_enable` no longer raises, and a configured
+    server endpoint installs the HTTP client."""
+    from xrslam_tpu_torch.localizer import HttpLocalizer
+
     cfg = osc.base_config(visual_localization_enable=True)
-    with pytest.raises(NotImplementedError, match="#4"):
-        api.XRSLAM(config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="#4"):
-        VIOPipeline(cfg, SyntheticTracker(device="cpu"), device="cpu")
+    assert api.XRSLAM(config=cfg, device="cpu").pipeline.localizer is None
+    assert VIOPipeline(cfg, SyntheticTracker(device="cpu"), device="cpu").localizer is None
+    cfg = cfg.replace(visual_localization_config_port=8000)
+    pipe = VIOPipeline(cfg, SyntheticTracker(device="cpu"), device="cpu")
+    assert isinstance(pipe.localizer, HttpLocalizer) and pipe.localizer.port == 8000
 
 
 @pytest.mark.slow

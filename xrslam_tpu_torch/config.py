@@ -16,11 +16,7 @@ import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
-
-try:
-    import yaml
-except ImportError:  # pragma: no cover
-    yaml = None
+import yaml
 
 
 def _eye3():

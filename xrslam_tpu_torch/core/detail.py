@@ -13,10 +13,13 @@ path of `xrslam_tpu/core/detail.py`):
   - with `visual_pnp_enable`, every tracked frame gets a pose-only PnP
     against the backend's landmarks, published as the latest state (the
     camera-rate pose path; the backend may run at a reduced rate,
-    `sliding_window_tracker_frequent`).
-
-Visual localization (`visual_localization_enable`) is not ported yet
-and raises NotImplementedError.
+    `sliding_window_tracker_frequent`),
+  - with `visual_localization_enable`, every tracked frame offers its
+    image and SLAM-frame pose to the installed localizer (throttled by
+    the localizer), and once the localizer has registered the SLAM ->
+    global transform every output pose is mapped through it. An
+    `HttpLocalizer` is installed when a server port is configured;
+    `set_localizer` installs another (a `MapLocalizer`).
 """
 
 from __future__ import annotations
@@ -57,21 +60,12 @@ def compute_device(device) -> torch.device:
     return device
 
 
-def check_supported(config: Config) -> None:
-    """Raise for a configured feature the port does not have yet."""
-    if config.visual_localization_enable:
-        raise NotImplementedError(
-            "visual_localization_enable: the localizer is not ported yet "
-            "(ROADMAP queue 1, item #4)")
-
-
 class VIOPipeline:
     """Push IMU + camera samples, get poses. Runs on the card unless
     `device="cpu"` is asked for."""
 
     def __init__(self, config: Config, tracker, device="cuda",
                  times: Optional[StageTimes] = None):
-        check_supported(config)
         self.config = config
         self.tracker = tracker
         self.device = compute_device(device)
@@ -80,6 +74,14 @@ class VIOPipeline:
         self.initializer: Optional[Initializer] = Initializer(
             config, self.device, times=self.times)
         self.swt: Optional[SlidingWindowTracker] = None
+        # visual (re)localization: the HTTP client when a server port is
+        # configured; set_localizer installs another backend
+        self.localizer = None
+        if config.visual_localization_enable and \
+                config.visual_localization_config_port:
+            from ..localizer import HttpLocalizer
+
+            self.localizer = HttpLocalizer(config)
         self.gyro_buf: List[tuple] = []
         self.accel_buf: List[tuple] = []
         self.imu_pending: List[tuple] = []
@@ -95,6 +97,12 @@ class VIOPipeline:
         # the number of frames whose PnP pose was published
         self._keymap: dict = {}
         self.pnp_frames = 0
+
+    def set_localizer(self, localizer) -> None:
+        """Install a visual-localization backend (`MapLocalizer` or
+        `HttpLocalizer`); the tracking loop queries it only with
+        `visual_localization_enable`."""
+        self.localizer = localizer
 
     # ------------------------------------------------------------------
     def track_gyroscope(self, t: float, w) -> Optional[OutputPose]:
@@ -144,11 +152,16 @@ class VIOPipeline:
         self.frame_pending.append(f)
         self._flush_frames()
 
-    def track_camera_image(self, t: float, image: np.ndarray) -> None:
+    def track_camera_image(self, t: float, image: np.ndarray,
+                           depth: Optional[np.ndarray] = None) -> None:
         """Push a grayscale image ((H,W) float32 in [0,1]); the tracker
-        fills the keypoint slots when the frame is processed."""
+        fills the keypoint slots when the frame is processed. `depth`
+        optionally carries an aligned metric depth image ((H,W) float32
+        metres, 0 = invalid), sampled at the keypoints into
+        `FrameRec.kp_depth`."""
         f = self._make_frame(t, np.zeros((self.tracker.capacity, 3)))
         f._image = np.asarray(image, dtype=np.float32)
+        f._depth_img = depth
         self.frame_pending.append(f)
         self._flush_frames()
 
@@ -198,12 +211,23 @@ class VIOPipeline:
                  self._frame_count % self.config.sliding_window_tracker_frequent == 0)
         self._frame_count += 1
         frame._detect_tag = issue
+        image = getattr(frame, "_image", None)  # the tracker releases it
         self.tracker_map.attach_frame(frame)
         with self.times.stage("feature_tracker_time"):
             self.tracker.track_frame(self.tracker_map, frame)
         if self.swt is not None and self.config.visual_pnp_enable:
             with self.times.stage("visual_pnp_time"):
                 self._solve_pnp_highrate(frame)
+        # throttled visual-localization query while tracking, with the
+        # frame's image and its SLAM-frame pose
+        if (self.localizer is not None and self.swt is not None
+                and self.config.visual_localization_enable):
+            prop = self._propagate_full(frame.t)
+            if prop is not None:
+                _, q_b, p_b, _ = prop
+                with self.times.stage("localizer_time"):
+                    self.localizer.query_localization(
+                        frame.t, image if image is not None else frame, q_b, p_b)
         cap = (self.config.feature_tracker_max_frames if self.swt
                else self.config.feature_tracker_max_init_frames)
         while len(self.tracker_map.frames) > cap:
@@ -311,6 +335,9 @@ class VIOPipeline:
         if prop is None:
             return None
         t_cur, q, p, _ = prop
+        # SLAM frame -> global frame once the localizer has registered
+        if self.localizer is not None and self.localizer.is_initialized():
+            q, p = self.localizer.transform(q, p)
         return OutputPose(t=t_cur, q=q, p=p)
 
     def _propagate_full(self, t: float):

@@ -4,6 +4,7 @@
                         tracker map with IMU concatenation
   init_sfm            — match/parallax gates, homography + essential
                         hypotheses (8 R,t) scored by triangulation,
+                        metric rescale by measured keypoint depths,
                         reprojection-prior localization of the middle
                         frames, vision-only BA, RPE pruning
   init_imu            — gyro-bias LS, gravity/scale/velocity linear
@@ -46,6 +47,9 @@ class Initializer:
         self.times = times if times is not None else StageTimes()
         self.map: Optional[PipelineMap] = None
         self.noise = pre.ImuNoise.from_config(config, device=self.device)
+        # the last depth rescale of init_sfm: factor and ratio count
+        self.depth_scale: Optional[float] = None
+        self.depth_ratios = 0
 
     def _extract(self, pmap, frames, K_slots, **kw):
         return extract_window(pmap, frames, K_slots,
@@ -121,7 +125,7 @@ class Initializer:
         pmap = self.map
         fi = pmap.frames[0]
         fj = pmap.frames[-1]
-        m1, m2, tids = [], [], []
+        m1, m2, tids, kis = [], [], [], []
         for ki in np.nonzero(fi.track_ids >= 0)[0]:
             tr = pmap.tracks.get(int(fi.track_ids[ki]))
             if tr is None:
@@ -134,6 +138,7 @@ class Initializer:
             m1.append(b1[:2] / b1[2])
             m2.append(b2[:2] / b2[2])
             tids.append(tr.id)
+            kis.append(int(ki))
         if len(m1) < cfg.initializer_min_matches:
             return False
         m1 = np.stack(m1)
@@ -196,6 +201,24 @@ class Initializer:
         if count < cfg.initializer_min_triangulation:
             return False
 
+        # depth-camera metric rescale: with measured keypoint depths on
+        # the first keyframe, scale T and the points by the median
+        # measured/triangulated depth ratio (at least 5 ratios)
+        if fi.kp_depth is not None:
+            ratios = []
+            for k in range(len(m1)):
+                if not status[k]:
+                    continue
+                zd = float(fi.kp_depth[kis[k]])
+                zt = float(pts[k][2])
+                if zd > 1e-3 and zt > 1e-6:
+                    ratios.append(zd / zt)
+            if len(ratios) >= 5:
+                sc = float(np.median(ratios))
+                Tt = Tt * sc
+                pts = pts * sc
+                self.depth_scale, self.depth_ratios = sc, len(ratios)
+
         _set_camera_pose(fi, np.array([1.0, 0, 0, 0]), np.zeros(3))
         _set_camera_pose(fj, nputil.matrix_to_quat(R.T), -(R.T @ Tt))
         for k in range(len(m1)):
@@ -218,7 +241,7 @@ class Initializer:
         for tr in pmap.tracks.values():
             if tr.valid:
                 continue
-            p = triangulate_track(tr, frames_by_id)
+            p, _ = triangulate_track(tr, frames_by_id)
             if p is not None:
                 tr.p_w = p
                 tr.valid = True
@@ -439,7 +462,7 @@ class Initializer:
         n_ok = 0
         frames_by_id = {f.id: f for f in self.map.frames}
         for tr in self.map.tracks.values():
-            p = triangulate_track(tr, frames_by_id)
+            p, _ = triangulate_track(tr, frames_by_id)
             if p is not None:
                 tr.p_w = p
                 tr.valid = True

@@ -8,6 +8,12 @@
     keyframe:  localize → inject → triangulate candidates → full-window
                VI-BA → landmark gates (solve_keyframe_chain), write-back,
                marginalization (slide_window)
+    keyframe with measured keypoint depths in the window (depth-camera
+    input): split on the host, since the depth-seeded triangulation
+    needs the localized pose there: localize_newframe (write-back),
+    manage_keyframe, track_landmark (`triangulate_track`),
+    refine_window (full-window VI-BA + landmark gates, write-back),
+    marginalization
     subframe:  localize + subwindow refine (solve_chained), write-back
 
 Every write-back is applied immediately (the port has no deferred
@@ -26,8 +32,9 @@ import torch
 
 from ..config import Config
 from ..estimation.marginalization import marginalize_frame
-from ..estimation.solver import (SolveOptions, solve_chained,
-                                 solve_keyframe_chain)
+from ..estimation.solver import (SolveOptions, landmark_gates,
+                                 solve_chained, solve_keyframe_chain,
+                                 solve_window)
 from ..estimation.window import MargPrior
 from ..geometry import lie
 from ..imu import preintegration as pre
@@ -37,8 +44,8 @@ from ..ransac import stereo as stereo_mod
 from ..utils.timing import StageTimes
 from . import nputil
 from .map import FrameRec, PipelineMap
-from .window_builder import (extract_window, interval_samples, needed_imu_cap,
-                             write_back)
+from .window_builder import (extract_window, interval_samples,
+                             needed_imu_cap, triangulate_track, write_back)
 
 
 def _predict_slot(state, data, idx: int):
@@ -112,6 +119,8 @@ class SlidingWindowTracker:
             "judge_refused_outliers": 0,
             "judge_refused_ambiguous": 0,
             "parsac_host_reads": 0,   # device -> host reads in the PARSAC stage
+            "depth_keyframes": 0,     # keyframes through the depth-camera split path
+            "depth_seeded": 0,        # landmarks seeded from a measured depth there
         }
 
     def _extract(self, frames, K_slots, **kw):
@@ -243,8 +252,17 @@ class SlidingWindowTracker:
                     self.update_track_status()
         verdict = self._keyframe_decision()
         if verdict != "subframe":
-            with self.times.stage("bundle_adjustor_solve_time"):
-                self._fused_keyframe_step(verdict)
+            if any(f.kp_depth is not None for f in self.map.all_frames()):
+                self.stats["depth_keyframes"] += 1
+                with self.times.stage("localize_newframe_time"):
+                    self.localize_newframe()
+                self.manage_keyframe(verdict)
+                self.track_landmark()
+                with self.times.stage("bundle_adjustor_solve_time"):
+                    self.refine_window()
+            else:
+                with self.times.stage("bundle_adjustor_solve_time"):
+                    self._fused_keyframe_step(verdict)
             with self.times.stage("bundle_adjustor_marginalization_time"):
                 self.slide_window()
         else:
@@ -376,6 +394,61 @@ class SlidingWindowTracker:
         data = data._replace(preint_mask=torch.as_tensor(pm, device=self.device),
                              fix_landmark=torch.ones_like(data.fix_landmark))
         return state, data, meta, target, len(wframes) - 1
+
+    def localize_newframe(self) -> None:
+        """Solve the new frame alone (the localize window) and write its
+        state back."""
+        state, data, meta, target, _ = self._prepare_localize()
+        st, _ = solve_window(state, data, SolveOptions(
+            iterations=self.config.solver_iteration_limit))
+        write_back(self.map, st, meta, write_landmarks=False,
+                   frame_subset={target.id})
+
+    def track_landmark(self) -> None:
+        """Triangulate the new keyframe's untriangulated tracks on the
+        host (`triangulate_track`: depth-seeded where an observation has
+        a measured depth)."""
+        new_j = self.map.frames[-1]
+        frames_by_id = {f.id: f for f in self.map.all_frames()}
+        for k in np.nonzero(new_j.track_ids >= 0)[0]:
+            tr = self.map.tracks.get(int(new_j.track_ids[k]))
+            if tr is None or tr.triangulated:
+                continue
+            p, seeded = triangulate_track(tr, frames_by_id)
+            self.stats["depth_seeded"] += seeded
+            if p is not None:
+                tr.p_w = p
+                tr.triangulated = tr.valid = tr.static = True
+                tr.life = 1
+            else:
+                tr.triangulated = tr.valid = False
+
+    def refine_window(self) -> None:
+        """Full sliding-window VI-BA with the marginalization prior, the
+        landmark depth/RPE gates on the device, one write-back, then the
+        host re-validation of the tracks outside the window's slots."""
+        frames = list(self.map.frames)
+        state, data, meta = self._extract(
+            frames, self.K_slots, track_filter=self._refine_track_filter(frames),
+            all_frames_between=self._kf_between(frames), imu_cap=128)
+        if self.marg is None:
+            self.marg = MargPrior.gauge_fix(self.K_slots, self.L_slots, state)
+        data = data._replace(marg=self.marg, use_marg=torch.ones(
+            (), dtype=torch.bool, device=self.device))
+        st, _ = solve_window(state, data, SolveOptions(
+            iterations=self.config.solver_iteration_limit))
+        fuv = np.stack([[f.K[0, 0], f.K[1, 1]] for f in frames]
+                       + [[1.0, 1.0]] * (self.K_slots - len(frames)))
+        gates = landmark_gates(st, data, torch.as_tensor(
+            fuv, dtype=st.p.dtype, device=self.device))
+        # landmarks the gates reject do not enter the marginalization prior
+        self._last_window = (
+            st, data._replace(landmark_mask=data.landmark_mask & gates[0]), meta)
+        ok, _ = write_back(self.map, st, meta, extra=gates)
+        self._apply_landmark_gates(meta, ok)
+        covered = {tid for l, tid in enumerate(meta.track_ids)
+                   if meta.landmark_mask[l]}
+        self._revalidate_landmarks(frames, skip_ids=covered)
 
     def _apply_pred(self, state, frames, data):
         """Patch the staged IMU prediction of the newest frame into its

@@ -10,7 +10,7 @@ map.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,9 +84,35 @@ def interval_samples(frames_between: List[FrameRec], cap: int):
     return t_buf, w_buf, a_buf, n, t0
 
 
-def triangulate_track(tr, frames_by_id) -> Optional[np.ndarray]:
-    """Multi-view DLT with cheirality check over all of a track's
+def depth_seed(tr, frames_by_id) -> Optional[np.ndarray]:
+    """The landmark of the track's first observation with a measured
+    keypoint depth (`FrameRec.kp_depth` > 1e-3) and a bearing in front
+    of the camera: the point at that z along the bearing, through the
+    frame's camera pose. None without such an observation."""
+    for fid, k in tr.obs.items():
+        f = frames_by_id.get(fid)
+        if f is None or f.kp_depth is None:
+            continue
+        z = float(f.kp_depth[k])
+        if z <= 1e-3:
+            continue
+        b = f.bearings[k]
+        if b[2] <= 1e-6:
+            continue
+        q_wc, p_wc = f.camera_pose()
+        return nputil.quat_rotate(q_wc, b / b[2] * z) + p_wc
+    return None
+
+
+def triangulate_track(tr, frames_by_id) -> Tuple[Optional[np.ndarray], bool]:
+    """(the track's landmark or None, whether a measured depth seeded
+    it). Seeded from a measured depth where one of its observations has
+    one (`depth_seed`: one observation suffices, no cheirality gate),
+    else the multi-view DLT with cheirality check over all of its
     observing frames (host, numpy)."""
+    p = depth_seed(tr, frames_by_id)
+    if p is not None:
+        return p, True
     rows = []
     Ps = []
     for fid, k in tr.obs.items():
@@ -102,13 +128,13 @@ def triangulate_track(tr, frames_by_id) -> Optional[np.ndarray]:
         rows.append(b[1] * P[2] - b[2] * P[1])
         Ps.append(P)
     if len(Ps) < 2:
-        return None
+        return None, False
     _, _, vt = np.linalg.svd(np.stack(rows), full_matrices=True)
     h = vt[-1]
     for P in Ps:
         if not ((P @ h)[2] * h[3] > 0):
-            return None
-    return h[:3] / h[3]
+            return None, False
+    return h[:3] / h[3], False
 
 
 def extract_window(pmap: PipelineMap, frames: List[FrameRec], K_slots: int,

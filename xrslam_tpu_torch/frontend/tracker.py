@@ -8,7 +8,9 @@
   5. 2-point rotation RANSAC + 70th-percentile misalignment angle →
      FT_NO_TRANSLATION,
   6. track-length-priority Poisson-disk re-filter (host),
-  7. GFTT detection with spacing filter into free slots.
+  7. GFTT detection with spacing filter into free slots,
+  8. with an aligned depth image, its value at each final keypoint into
+     `FrameRec.kp_depth`; the painter tap (`utils.inspection`).
 
 Device results are read back once per frame with `.cpu()`.
 """
@@ -25,6 +27,7 @@ from ..config import Config
 from ..core import nputil
 from ..core.map import FrameRec, PipelineMap
 from ..ransac import stereo as stereo_mod
+from ..utils import inspection
 from ..utils.timing import StageTimes
 from . import image as img_ops
 from . import klt
@@ -158,10 +161,33 @@ class KLTFeatureTracker:
             self._finish_detect(tracker_map, frame, vals)
         if prev is not None:
             prev._pyr = None  # release_image_buffer
-        self._finalize_frame(frame)
+        self._finalize_frame(tracker_map, frame)
         self._prev = frame
 
-    def _finalize_frame(self, frame: FrameRec) -> None:
+    def _finalize_frame(self, tracker_map: PipelineMap, frame: FrameRec) -> None:
+        """Post-tracking host work on the frame's final keypoints: depth
+        sampling (nearest pixel, 0 outside the image), the painter tap,
+        and the image release."""
+        dimg = getattr(frame, "_depth_img", None)
+        if dimg is not None:
+            kd = np.zeros((self.capacity,), dtype=np.float64)
+            Hd, Wd = dimg.shape
+            for k in np.nonzero(frame.track_ids >= 0)[0]:
+                u = int(round(frame._pts[k, 0]))
+                v = int(round(frame._pts[k, 1]))
+                if 0 <= u < Wd and 0 <= v < Hd:
+                    kd[k] = float(dimg[v, u])
+            frame.kp_depth = kd
+            frame._depth_img = None
+        if inspection.inspect_get(inspection.PAINTER_ENABLE):
+            active = np.nonzero(frame.track_ids >= 0)[0]
+            lengths = np.array([
+                len(t.obs) if (t := tracker_map.get_track(frame, int(k))) else 0
+                for k in active])
+            inspection.inspect(inspection.PAINTER_FRAME, {
+                "image": frame._image, "pts": frame._pts[active].copy(),
+                "lengths": lengths, "frame_id": frame.id, "t": frame.t,
+            })
         frame._image = None
 
     def _gyro_delta_q(self, prev: FrameRec, frame: FrameRec) -> np.ndarray:

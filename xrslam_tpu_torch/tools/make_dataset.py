@@ -1,5 +1,6 @@
-"""Synthetic EuRoC-geometry sequence in memory, and a player that drives
-it through the public API.
+"""Synthetic EuRoC-geometry sequence, in memory or written to disk as
+an EuRoC-layout dataset, and a player that drives the in-memory one
+through the public API.
 
 `render_sequence` is the frame renderer of
 `xrslam_tpu/tools/make_dataset.py` (blob-textured grayscale frames of
@@ -8,15 +9,26 @@ camera/IMU event streams with the timestamps a EuRoC reader of the
 rendered dataset would produce, the ground truth, and the `Config`
 that the dataset's YAML pair describes. `run_sequence` feeds those
 events to `api.XRSLAM` in time order (the dataset player's loop) and
-`ate` scores the output against the ground truth.
+`ate` scores the output against the ground truth. `render_dataset`
+(the counterpart of `xrslam_tpu/tools/make_dataset.py`) writes the same
+frames, optional aligned depth images, the IMU and ground-truth CSVs and
+the YAML pair to disk for `tools/run_dataset.py`:
+
+  python -m xrslam_tpu_torch.tools.make_dataset /tmp/seq --frames 120 \
+      --width 752 --height 480 --focal 458 --depth
+  python -m xrslam_tpu_torch.tools.run_dataset euroc:///tmp/seq/mav0 \
+      --slam-config /tmp/seq/slam.yaml --device-config /tmp/seq/device.yaml --gt
 """
 
 from __future__ import annotations
 
+import argparse
+import os
 import time
 
 import numpy as np
 import torch
+from PIL import Image
 
 from ..config import Config
 from ..core import nputil
@@ -58,12 +70,12 @@ def sequence_config(width: int, height: int, focal: float) -> Config:
         solver_iteration_limit=10)
 
 
-def render_sequence(n_frames: int = 60, n_landmarks: int = 500,
-                    width: int = 320, height: int = 240, focal: float = 260.0,
-                    seed: int = 3, landmarks=None) -> dict:
-    """Render the wave scene. Returns {images (F,H,W) uint8, t_cam (F,),
-    imu_t (M,), imu_w (M,3), imu_a (M,3), gt_t (F,), gt_p (F,3),
-    config}; times are in seconds on the dataset clock."""
+def _renderer(n_frames: int, n_landmarks: int, width: int, height: int,
+              focal: float, seed: int, landmarks=None):
+    """The wave scene and its frame renderer: `render(i, with_depth)`
+    gives frame i as float [0,1] blob texture and, with depth, the
+    (H,W) float32 z-depth of the blobs (0 where none; the nearest blob
+    wins where they overlap)."""
     W, H, Fc = width, height, focal
     K = np.array([[Fc, 0, W / 2], [0, Fc, H / 2], [0, 0, 1.0]])
     q_bc, p_bc = camera_extrinsics()
@@ -72,7 +84,6 @@ def render_sequence(n_frames: int = 60, n_landmarks: int = 500,
                                         landmarks=landmarks))
     qs, ps = scene.q.numpy(), scene.p.numpy()
     lms = scene.landmarks.numpy()
-    ts = scene.t.numpy()
 
     rng = np.random.default_rng(seed)
     amps = rng.uniform(0.35, 0.75, n_landmarks) * rng.choice([-1.0, 1.0],
@@ -86,7 +97,7 @@ def render_sequence(n_frames: int = 60, n_landmarks: int = 500,
         bg = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, bg)
     bg = bg * 0.06 + 0.45
 
-    def render(i):
+    def render(i, with_depth=False):
         q_wc = nputil.quat_mul(qs[i], q_bc)
         p_wc = ps[i] + nputil.quat_rotate(qs[i], p_bc)
         R_cw = nputil.quat_to_matrix(nputil.quat_conj(q_wc))
@@ -94,8 +105,9 @@ def render_sequence(n_frames: int = 60, n_landmarks: int = 500,
         vis = Xc[:, 2] > 0.3
         uv = (K @ (Xc[vis] / Xc[vis, 2:3]).T).T[:, :2]
         img = bg.copy()
+        dep = np.zeros((H, W), dtype=np.float32)
         r = 7
-        for (u, v), amp in zip(uv, amps[vis]):
+        for (u, v), amp, z in zip(uv, amps[vis], Xc[vis, 2]):
             if u < -r or u >= W + r or v < -r or v >= H + r:
                 continue
             x0, x1 = max(0, int(u) - r), min(W, int(u) + r + 1)
@@ -103,22 +115,148 @@ def render_sequence(n_frames: int = 60, n_landmarks: int = 500,
             xs, ys = np.meshgrid(np.arange(x0, x1), np.arange(y0, y1))
             img[y0:y1, x0:x1] += amp * np.exp(
                 -((xs - u) ** 2 + (ys - v) ** 2) / (2 * sig * sig))
-        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            if with_depth:
+                disc = ((xs - u) ** 2 + (ys - v) ** 2) <= (r - 2) ** 2
+                blk = dep[y0:y1, x0:x1]
+                blk[disc & ((blk == 0) | (blk > z))] = z
+                dep[y0:y1, x0:x1] = blk
+        return np.clip(img, 0, 1), dep
+
+    return scene, render
+
+
+def render_sequence(n_frames: int = 60, n_landmarks: int = 500,
+                    width: int = 320, height: int = 240, focal: float = 260.0,
+                    seed: int = 3, landmarks=None) -> dict:
+    """Render the wave scene. Returns {images (F,H,W) uint8, t_cam (F,),
+    imu_t (M,), imu_w (M,3), imu_a (M,3), gt_t (F,), gt_p (F,3),
+    config}; times are in seconds on the dataset clock."""
+    scene, render = _renderer(n_frames, n_landmarks, width, height, focal,
+                              seed, landmarks)
+    ts = scene.t.numpy()
 
     def clock(t_s):
         return np.array([float(T0_NS + int(round(t * 1e9))) * 1e-9 for t in t_s])
 
     it = scene.imu_t.numpy().reshape(-1)
     return {
-        "images": np.stack([render(i) for i in range(n_frames)]),
+        "images": np.stack([(render(i)[0] * 255).astype(np.uint8)
+                            for i in range(n_frames)]),
         "t_cam": clock(ts),
         "imu_t": clock(it),
         "imu_w": scene.imu_w.numpy().reshape(-1, 3),
         "imu_a": scene.imu_a.numpy().reshape(-1, 3),
         "gt_t": clock(ts),
-        "gt_p": ps.copy(),
-        "config": sequence_config(W, H, Fc),
+        "gt_p": scene.p.numpy().copy(),
+        "config": sequence_config(width, height, focal),
     }
+
+
+def render_dataset(out_dir: str, n_frames: int, n_landmarks: int,
+                   width: int, height: int, focal: float, seed: int = 3,
+                   with_depth: bool = False) -> dict:
+    """Write the wave scene as an EuRoC-layout dataset under `out_dir`:
+    mav0/cam0 (uint8 PNGs), with `with_depth` mav0/depth0 (uint16
+    millimetre PNGs of the blobs' z-depth, 0 = no measurement), imu0,
+    state_groundtruth_estimate0 (ns timestamps), and the slam/device
+    YAML pair. PNGs are written by Pillow. Returns
+    {root, slam_yaml, device_yaml}."""
+
+    W, H, F = width, height, focal
+    q_bc, p_bc = camera_extrinsics()
+    scene, render = _renderer(n_frames, n_landmarks, W, H, F, seed)
+    qs, ps = scene.q.numpy(), scene.p.numpy()
+    ts = scene.t.numpy()
+
+    root = os.path.join(out_dir, "mav0")
+    os.makedirs(os.path.join(root, "cam0", "data"), exist_ok=True)
+    os.makedirs(os.path.join(root, "imu0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "state_groundtruth_estimate0"), exist_ok=True)
+    if with_depth:
+        os.makedirs(os.path.join(root, "depth0", "data"), exist_ok=True)
+    cam_rows = ["#timestamp [ns],filename"]
+    dep_rows = ["#timestamp [ns],filename"]
+    for i in range(n_frames):
+        tns = T0_NS + int(round(ts[i] * 1e9))
+        fn = f"{tns}.png"
+        img, dep = render(i, with_depth)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(root, "cam0", "data", fn))
+        cam_rows.append(f"{tns},{fn}")
+        if with_depth:
+            Image.fromarray(np.clip(dep * 1000.0, 0, 65535).astype(np.uint16)).save(
+                os.path.join(root, "depth0", "data", fn))
+            dep_rows.append(f"{tns},{fn}")
+    with open(os.path.join(root, "cam0", "data.csv"), "w") as f:
+        f.write("\n".join(cam_rows) + "\n")
+    if with_depth:
+        with open(os.path.join(root, "depth0", "data.csv"), "w") as f:
+            f.write("\n".join(dep_rows) + "\n")
+
+    it = scene.imu_t.numpy()
+    iw = scene.imu_w.numpy()
+    ia = scene.imu_a.numpy()
+    imu_rows = ["#timestamp [ns],wx,wy,wz,ax,ay,az"]
+    for i in range(n_frames):
+        for s in range(it.shape[1]):
+            tns = T0_NS + int(round(it[i, s] * 1e9))
+            w, a = iw[i, s], ia[i, s]
+            imu_rows.append(f"{tns},{w[0]},{w[1]},{w[2]},{a[0]},{a[1]},{a[2]}")
+    with open(os.path.join(root, "imu0", "data.csv"), "w") as f:
+        f.write("\n".join(imu_rows) + "\n")
+
+    gt_rows = ["#timestamp,px,py,pz,qw,qx,qy,qz"]
+    for i in range(n_frames):
+        tns = T0_NS + int(round(ts[i] * 1e9))
+        gt_rows.append(f"{tns},{ps[i,0]},{ps[i,1]},{ps[i,2]},"
+                       f"{qs[i,0]},{qs[i,1]},{qs[i,2]},{qs[i,3]}")
+    with open(os.path.join(root, "state_groundtruth_estimate0", "data.csv"),
+              "w") as f:
+        f.write("\n".join(gt_rows) + "\n")
+
+    device_yaml = os.path.join(out_dir, "device.yaml")
+    with open(device_yaml, "w") as f:
+        f.write(f"""%YAML:1.0
+cam0:
+  resolution: [{W}, {H}]
+  intrinsics: [{F}, {F}, {W/2}, {H/2}]
+  camera_distortion_flag: 0
+  time_offset: 0.0
+  extrinsic:
+    q_bc: [{q_bc[1]}, {q_bc[2]}, {q_bc[3]}, {q_bc[0]}]
+    p_bc: [{p_bc[0]}, {p_bc[1]}, {p_bc[2]}]
+  noise: [0.25, 0.0, 0.0, 0.25]
+imu:
+  extrinsic:
+    q_bi: [0.0, 0.0, 0.0, 1.0]
+    p_bi: [0.0, 0.0, 0.0]
+  noise:
+    cov_g: [1.0e-6, 0.0, 0.0, 0.0, 1.0e-6, 0.0, 0.0, 0.0, 1.0e-6]
+    cov_a: [1.0e-4, 0.0, 0.0, 0.0, 1.0e-4, 0.0, 0.0, 0.0, 1.0e-4]
+    cov_bg: [1.0e-10, 0.0, 0.0, 0.0, 1.0e-10, 0.0, 0.0, 0.0, 1.0e-10]
+    cov_ba: [1.0e-8, 0.0, 0.0, 0.0, 1.0e-8, 0.0, 0.0, 0.0, 1.0e-8]
+""")
+    slam_yaml = os.path.join(out_dir, "slam.yaml")
+    with open(slam_yaml, "w") as f:
+        f.write("""%YAML:1.0
+sliding_window:
+  size: 10
+  subframe_size: 3
+  force_keyframe_landmarks: 20
+feature_tracker:
+  min_keypoint_distance: 15.0
+  max_keypoint_detection: 120
+initializer:
+  keyframe_num: 8
+  keyframe_gap: 3
+  min_matches: 30
+  min_parallax: 5.0
+  min_triangulation: 25
+  min_landmarks: 18
+solver:
+  iteration_limit: 10
+""")
+    return {"root": root, "slam_yaml": slam_yaml, "device_yaml": device_yaml}
 
 
 def events(seq: dict):
@@ -185,3 +323,25 @@ def timed_run(slam, seq: dict, device, max_frames=None) -> dict:
             "ate_m": ate(seq, ts, ps), "seconds": dt,
             "frames_per_s": n / dt,
             "stage_ms": {k: v * 1e3 for k, v in sorted(slam.times.means().items())}}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Write the wave scene as an "
+                                 "EuRoC-layout dataset")
+    ap.add_argument("out_dir")
+    ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--landmarks", type=int, default=500)
+    ap.add_argument("--width", type=int, default=752)
+    ap.add_argument("--height", type=int, default=480)
+    ap.add_argument("--focal", type=float, default=458.0)
+    ap.add_argument("--seed", type=int, default=3)
+    ap.add_argument("--depth", action="store_true",
+                    help="also write aligned depth images (mav0/depth0)")
+    args = ap.parse_args(argv)
+    print(render_dataset(args.out_dir, n_frames=args.frames, n_landmarks=args.landmarks,
+                         width=args.width, height=args.height, focal=args.focal,
+                         seed=args.seed, with_depth=args.depth))
+
+
+if __name__ == "__main__":
+    main()

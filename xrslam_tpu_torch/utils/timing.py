@@ -28,5 +28,8 @@ class StageTimes:
             self._total[name] = self._total.get(name, 0.0) + dt
             self._count[name] = self._count.get(name, 0) + 1
 
+    def totals(self) -> Dict[str, float]:
+        return dict(self._total)
+
     def means(self) -> Dict[str, float]:
         return {k: self._total[k] / self._count[k] for k in self._total}
