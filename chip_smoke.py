@@ -48,6 +48,12 @@
    unless both kernels launched, the fused K2 entry among them, K1's
    fused entry once per tracked frame pair and its entry 1 never, no
    image-wide Scharr call, >= 60 frames tracked and ATE <= 0.25 m;
+   then holds the four analytic frame Jacobians
+   (`estimation.validator.analytic_frame_jacobians`: the closed-form
+   reprojection Jacobian of K2's fused entry, preintegration, rotation,
+   the marginalization prior) to autodiff through the retraction by
+   `validator.validate` on the drive's last keyframe window (re-extracted
+   at its end, f64 on the card), each within `max_jacobian_error`;
 6. drives the same scene's first 60 frames with `parsac_flag`
    (IMU-PARSAC judge and the 2D-2D update chain), with the same kernel
    checks, >= 20 frames tracked (the backend starts near frame 29) and
@@ -90,7 +96,9 @@
    non-empty while tracking, and the kernels launched as in 5; prints
    frames/s with the reader and without it, the reader's and the PNG
    decode's (Pillow's) time and the stage means; then runs the CLI
-   (`run_dataset.main`) on its first 20 frames with `--gt`;
+   (`run_dataset.main`) on its first 40 frames with `--gt` and
+   `--viz`, which must write one overlay PNG per frame the tracker
+   processed and the trajectory plot;
 10. plays the dataset's first 60 frames with `visual_localization_enable`
    and a `MapLocalizer` (query interval 0.5 s) whose matcher serves the
    frame's ground-truth 2D-3D correspondences (0.5 px noise, the points
@@ -103,7 +111,23 @@
    in-process stub server sent a JPEG and registered the stub's
    transform. Its keyframes take the depth path of 9, and it prints
    their device syncs, counted by torch's sync debug mode (so that
-   9's time holds none of the counting's cost).
+   9's time holds none of the counting's cost);
+11. checkpoint/resume (`utils.checkpoint`): the bench scene's first 60
+   frames as bearings through the `SyntheticTracker` at the dataset's
+   slam config (K2 runs, K1 not), with PARSAC off and on, each driven
+   straight and, in a second pipeline, to frame 45, saved, restored onto
+   the card and finished (four drives in processes of their own); fails
+   unless each resumed tail is within 1e-6 m of the straight run's and,
+   with PARSAC, both stages' bin confidences and m_th within 1e-12;
+   beside them, the main path's image stream cut at frame 60, restored
+   into a fresh engine (its tracker re-detects) and played to 90, held
+   to the main drive's kernel checks, >= 45 tracked and ATE <= 0.25 m;
+   prints the file sizes and the save and load times;
+12. the benchmark (`tools.bench_pipeline.main`) at 752x480, focal 458,
+   two passes (the first a warm-up) of 75 frames; fails unless its JSON
+   line parses, >= 60% of the frames were tracked, ATE <= 0.25 m and
+   both kernels launched as in 5; prints the line (frames/s, per-frame
+   latency median and p90, stage means).
 
 Each drive sets the launch counts to 0 just before it and reads them
 just after; the `kernels` line gives the main path's as `launches` and
@@ -137,6 +161,24 @@ PNP_FRAMES = 60
 # cut from 120 frames when phases 9-10 took the script past 600 s
 PARSAC_FRAMES = 60
 LOC_FRAMES = 60
+# the dataset CLI's run with --viz: long enough to track (the backend
+# starts near frame 29) so that the trajectory plot has an estimate
+CLI_FRAMES = 40
+# checkpoint phase: the bearing-fed runs (straight, and cut + resumed)
+# and the image run (cut + resumed)
+CKPT_FRAMES = 60
+CKPT_CUT = 45
+# cut from 120 frames when the script took 713.6 s, past the 650 s set
+# for it (PERF.md section 4)
+CKPT_IMAGE_FRAMES = 90
+CKPT_IMAGE_CUT = 60
+CKPT_TAIL_TOL_M = 1e-6
+CKPT_STATE_TOL = 1e-12
+# benchmark phase: frames of each of its two passes; 60% of them tracked
+# needs about 70 (the backend starts near frame 29); cut from 80 with
+# the image checkpoint run
+BENCH_FRAMES = 75
+BENCH_MIN_TRACKED_SHARE = 0.6
 # The dynamic-object scene's outcome turns on which frame the judge
 # first returns True, a matter of the RANSAC draws: over Config.random
 # seeds the JAX package met its e2e criteria in about half of the runs
@@ -726,7 +768,7 @@ def drive_phase(dev, seq) -> dict:
         {k: round(v, 2) for k, v in res["stage_ms"].items()}), flush=True)
     check_image_path(res, "the main path")
     check_ate(res, "the main path")
-    return res
+    return res, slam
 
 
 @contextlib.contextmanager
@@ -836,12 +878,14 @@ def visual_pnp_phase(dev, seq) -> dict:
 
 def dataset_phase(dev, out_dir: str, n_frames: int = N_FRAMES, width: int = 752,
                   height: int = 480, focal: float = 458.0,
-                  min_tracked: int = 60) -> dict:
+                  min_tracked: int = 60, cli_frames: int = CLI_FRAMES) -> dict:
     """Phase 9: the bench scene written to disk as an EuRoC-layout
     dataset with aligned depth images and played back through
     `tools.run_dataset` (the reader, the YAML pair, `api.XRSLAM` with
     DEPTH_CAMERA and the depth-camera keyframe path); then the CLI on
-    its first 20 frames. The drive is timed without the sync counting
+    its first `cli_frames` frames with `--viz`, which must write one
+    overlay per frame the tracker processed and the trajectory plot.
+    The drive is timed without the sync counting
     of `counting_syncs`: the localizer drive counts the syncs of the same
     keyframe path."""
     import torch
@@ -932,11 +976,24 @@ def dataset_phase(dev, out_dir: str, n_frames: int = N_FRAMES, width: int = 752,
     if not seen["results"] or min(min(r) for r in seen["results"]) == 0:
         fail("dataset drive: LANDMARKS or FEATURES came back empty while tracking")
 
+    viz_dir = os.path.join(out_dir, "viz")
     cli = run_dataset.main(["euroc://" + paths["root"], "--slam-config", paths["slam_yaml"],
-                            "--device-config", paths["device_yaml"], "--max-frames", "20",
-                            "--gt", "--sync", "--device", torch.device(dev).type])
+                            "--device-config", paths["device_yaml"], "--max-frames",
+                            str(cli_frames), "--gt", "--sync", "--viz", viz_dir,
+                            "--device", torch.device(dev).type])
     if not ({"frames_tracked", "fps", "timings"} <= set(cli) and cli["fps"] > 0):
         fail(f"run_dataset's CLI printed {cli}")
+    pngs = sorted(f for f in os.listdir(viz_dir) if f.startswith("frame_"))
+    plot = os.path.join(viz_dir, "trajectory.png")
+    print(f"run_dataset --viz on {cli_frames} frames: {len(pngs)} overlay PNGs for "
+          f"{cli['frames_processed']} frames the tracker processed, "
+          f"{cli['frames_tracked']} tracked, trajectory plot "
+          f"{os.path.getsize(plot) if os.path.exists(plot) else 'missing'} bytes", flush=True)
+    if not (len(pngs) == cli["overlays"] == cli["frames_processed"] > 0):
+        fail(f"run_dataset --viz wrote {len(pngs)} overlays ({cli['overlays']} counted) for "
+             f"{cli['frames_processed']} frames")
+    if cli["frames_tracked"] == 0 or not os.path.exists(plot):
+        fail("run_dataset --viz: no frame tracked or no trajectory plot written")
     res["cli"] = cli
     res["paths"] = paths
     return res
@@ -1330,6 +1387,289 @@ def parsac_repeat_phase(dev) -> dict:
     return res
 
 
+def validator_phase(swt) -> dict:
+    """The Jacobian validator on the main drive's last window: the full
+    keyframe window (K slots, L landmark slots, f64, on the window
+    tracker's device) extracted at the end of the drive with its
+    marginalization prior, each of the four analytic frame Jacobians
+    (`validator.analytic_frame_jacobians`) held to the autodiff one by
+    `validator.validate` at `Options.max_jacobian_error`."""
+    import torch
+
+    from xrslam_tpu_torch.estimation import validator
+
+    frames = list(swt.map.frames)
+    state, data, _ = swt._extract(
+        frames, swt.K_slots, track_filter=swt._refine_track_filter(frames),
+        all_frames_between=swt._kf_between(frames), imu_cap=128)
+    data = data._replace(marg=swt.marg, use_marg=torch.ones(
+        (), dtype=torch.bool, device=swt.device))
+    opts = validator.Options()
+    res = {"device": str(state.p.device), "dtype": str(state.p.dtype),
+           "K": state.K, "L": state.L, "frames": len(frames),
+           "landmarks": int(data.landmark_mask.sum()),
+           "max_jacobian_error": opts.max_jacobian_error, "errors": {}, "seconds": {}}
+    for name, (fn, J) in validator.analytic_frame_jacobians(state, data).items():
+        t0 = time.perf_counter()
+        try:
+            res["errors"][name] = validator.validate(fn, J, state, data, opts)
+        except AssertionError as e:
+            fail(f"validator: the {name} Jacobian: {e}")
+        res["seconds"][name] = time.perf_counter() - t0
+    print(f"validator on the main drive's last window ({res['frames']} keyframes in "
+          f"K={res['K']} slots, {res['landmarks']} of L={res['L']} landmarks, "
+          f"{res['dtype']} on {res['device']}), largest |analytic - autodiff| against "
+          f"max_jacobian_error {opts.max_jacobian_error:g}: " + ", ".join(
+              f"{k} {v:.3e} ({res['seconds'][k]:.1f} s)" for k, v in res["errors"].items()),
+          flush=True)
+    return res
+
+
+def bench_bearing_scene(n_frames: int) -> dict:
+    """The bench scene (wave scene seed 3, 500 landmarks) as bearings for
+    the `SyntheticTracker`, in `object_scene.drive`'s format: each
+    frame's landmarks in front of the camera and inside the 752x480
+    image (focal 458), with 0.5 px of seeded pixel noise, in at most the
+    image tracker's 256 slots."""
+    import torch
+
+    from xrslam_tpu_torch.io.synthetic import bearings_of, euler_consistent, wave_scene
+    from xrslam_tpu_torch.tools.make_dataset import camera_extrinsics
+
+    width, height, focal, noise_px = 752, 480, 458.0, 0.5
+    q_bc, p_bc = camera_extrinsics()
+    scene = euler_consistent(wave_scene(n_frames=n_frames, n_landmarks=500, seed=3))
+    b, mask = bearings_of(scene, torch.as_tensor(q_bc), torch.as_tensor(p_bc))
+    b, mask = b.numpy().copy(), mask.numpy().copy()
+    z = np.where(b[..., 2] > 1e-9, b[..., 2], 1e-9)
+    u = focal * b[..., 0] / z + width / 2
+    v = focal * b[..., 1] / z + height / 2
+    mask &= (b[..., 2] > 0) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+    nz = np.random.default_rng(5).normal(0.0, noise_px / focal, b[..., :2].shape)
+    b[..., :2] += nz * b[..., 2:3]
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    return {"scene": scene, "bearings": b, "mask": mask, "capacity": 256}
+
+
+def checkpoint_bearing_run(parsac_flag: bool, n_frames: int, cut, dev, path=None) -> dict:
+    """The bench scene's first `n_frames` frames as bearings through the
+    `SyntheticTracker` at the dataset's slam config: straight through
+    (`cut` None), or to frame `cut`, saved to `path`, restored onto `dev`
+    with the tracker's hint map carried over, and finished. Launch
+    counts are set to 0 first."""
+    import torch
+
+    from xrslam_tpu_torch.core.detail import SyntheticTracker, VIOPipeline
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools import object_scene as osc
+    from xrslam_tpu_torch.tools.make_dataset import sequence_config
+    from xrslam_tpu_torch.utils import checkpoint
+
+    dev = torch.device(dev)
+    scene = bench_bearing_scene(n_frames)
+    cfg = sequence_config(752, 480, 458.0).replace(parsac_flag=parsac_flag)
+    build.reset_launch_counts()
+    pipe = VIOPipeline(cfg, SyntheticTracker(device=dev), device=dev)
+    res = {}
+    if cut is None:
+        t, p = osc.drive(pipe, scene)
+    else:
+        osc.drive(pipe, scene, max_frames=cut)
+        if pipe.swt is None:
+            fail(f"checkpoint: the bearing run did not initialize by frame {cut}")
+        t0 = time.perf_counter()
+        checkpoint.save_pipeline(path, pipe)
+        res["save_s"] = time.perf_counter() - t0
+        res["file_bytes"] = os.path.getsize(path)
+        tracker = SyntheticTracker(device=dev)
+        tracker._id_map = dict(pipe.tracker._id_map)
+        t0 = time.perf_counter()
+        pipe = checkpoint.load_pipeline(path, cfg, tracker, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        res["load_s"] = time.perf_counter() - t0
+        res["restored_on"] = str(pipe.swt.bin_conf.device)
+        t, p = osc.drive(pipe, scene, start=cut)
+    swt = pipe.swt
+    res.update(t=t, p=p, bin_conf=swt.bin_conf.cpu().numpy(),
+               bin_conf_2d2d=swt.bin_conf_2d2d.cpu().numpy(), m_th=swt.m_th,
+               judge_true=swt.stats["judge_true"],
+               launches={k.name: k.launches for k in build.KERNELS})
+    return res
+
+
+def checkpoint_bearing_worker(parsac_flag: bool, n_frames: int, cut, dev: str,
+                              path) -> dict:
+    """One bearing-fed checkpoint run, in a process of its own."""
+    import torch
+
+    torch.set_num_threads(1)
+    return checkpoint_bearing_run(parsac_flag, n_frames, cut, dev, path)
+
+
+def compare_bearing_runs(what: str, straight: dict, resumed: dict, t_cut: float,
+                         parsac_flag: bool, n_frames: int, cut: int) -> dict:
+    """The resumed tail against the straight run's, matched by time:
+    positions within CKPT_TAIL_TOL_M; with PARSAC both stages' bin
+    confidences and m_th within CKPT_STATE_TOL."""
+    ref = {float(t): p for t, p in zip(straight["t"], straight["p"]) if t > t_cut}
+    out = {float(t): p for t, p in zip(resumed["t"], resumed["p"])}
+    if not ref or set(ref) != set(out):
+        fail(f"checkpoint {what}: the resumed run tracked frames at {sorted(out)}, the "
+             f"straight run at {sorted(ref)}")
+    res = {"tail_frames": len(ref),
+           "tail_err_m": max(float(np.linalg.norm(ref[t] - out[t])) for t in ref),
+           "file_bytes": resumed["file_bytes"], "save_s": resumed["save_s"],
+           "load_s": resumed["load_s"], "restored_on": resumed["restored_on"],
+           "launches": {k: straight["launches"][k] + resumed["launches"][k]
+                        for k in straight["launches"]}}
+    bad = res["tail_err_m"] > CKPT_TAIL_TOL_M
+    if parsac_flag:
+        res.update(judge_true=straight["judge_true"], state_err={
+            k: float(np.max(np.abs(np.asarray(straight[k]) - np.asarray(resumed[k]))))
+            for k in ("bin_conf", "bin_conf_2d2d", "m_th")})
+        bad |= max(res["state_err"].values()) > CKPT_STATE_TOL
+    print(f"checkpoint, {what}: cut at frame {cut} of {n_frames}, file "
+          f"{res['file_bytes']} bytes, save {res['save_s'] * 1e3:.1f} ms, load onto "
+          f"{res['restored_on']} {res['load_s'] * 1e3:.1f} ms; resumed tail "
+          f"{res['tail_frames']} frames, largest |dp| {res['tail_err_m']:.3e} m (limit "
+          f"{CKPT_TAIL_TOL_M:g})" + (f"; judge True {res['judge_true']} times; |d bin_conf| "
+                                    f"{res['state_err']['bin_conf']:.3e}, |d bin_conf_2d2d| "
+                                    f"{res['state_err']['bin_conf_2d2d']:.3e}, |d m_th| "
+                                    f"{res['state_err']['m_th']:.3e} (limit "
+                                    f"{CKPT_STATE_TOL:g})" if parsac_flag else "")
+          + f"; launches {res['launches']}", flush=True)
+    if bad:
+        fail(f"checkpoint {what}: the resumed run differs from the straight run")
+    if res["launches"]["reproj_gram"] == 0 or res["launches"]["klt_level"] != 0:
+        fail(f"checkpoint {what}: launches {res['launches']} (K2 must run, K1 not)")
+    return res
+
+
+def checkpoint_image_run(dev, seq, path: str, cut: int = CKPT_IMAGE_CUT,
+                         n_frames: int = CKPT_IMAGE_FRAMES, min_tracked: int = 45) -> dict:
+    """The main path's image stream through `api.XRSLAM` to frame `cut`,
+    saved, restored onto `dev` in a fresh engine (whose image tracker
+    re-detects keypoints on the first frame) and played to `n_frames`;
+    held to the main drive's limits and kernel checks."""
+    import torch
+
+    from xrslam_tpu_torch import api
+    from xrslam_tpu_torch.frontend import image as img_ops
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools.make_dataset import ate, run_sequence
+    from xrslam_tpu_torch.utils import checkpoint
+
+    cfg = seq["config"]
+    build.reset_launch_counts()
+    with counting(klt, "track_keypoints") as pairs, \
+            counting(img_ops, "scharr") as scharr_calls:
+        slam = api.XRSLAM(config=cfg, device=dev)
+        ts1, ps1 = run_sequence(api, slam, seq, stop=cut)
+        if slam.pipeline.swt is None:
+            fail(f"checkpoint image run: not tracking at frame {cut}")
+        t0 = time.perf_counter()
+        checkpoint.save_pipeline(path, slam.pipeline)
+        save_s = time.perf_counter() - t0
+        resumed = api.XRSLAM(config=cfg, device=dev)
+        t0 = time.perf_counter()
+        resumed.pipeline = checkpoint.load_pipeline(path, cfg, resumed.pipeline.tracker,
+                                                    device=dev, times=resumed.times)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
+        load_s = time.perf_counter() - t0
+        ts2, ps2 = run_sequence(api, resumed, seq, start=cut, stop=n_frames)
+    ts, ps = np.concatenate([ts1, ts2]), np.concatenate([ps1, ps2])
+    res = {"frames": n_frames, "cut": cut, "frames_tracked": len(ts),
+           "tracked_before_cut": len(ts1), "ate_m": ate(seq, ts, ps),
+           "ate_after_cut_m": ate(seq, ts2, ps2), "file_bytes": os.path.getsize(path),
+           "save_s": save_s, "load_s": load_s,
+           "launches": {k.name: k.launches for k in build.KERNELS},
+           "entry_launches": {k.name: dict(k.entry_launches) for k in build.KERNELS},
+           "frame_pairs_tracked": pairs[0], "scharr_calls": scharr_calls[0]}
+    print(f"checkpoint, image run (752x480): cut at frame {cut}, file {res['file_bytes']} "
+          f"bytes, save {save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms; "
+          f"{res['frames_tracked']}/{n_frames} tracked ({len(ts1)} before the cut), ATE "
+          f"{res['ate_m']:.4f} m ({res['ate_after_cut_m']:.4f} m after the cut), launches "
+          f"{res['launches']} over {res['frame_pairs_tracked']} frame pairs", flush=True)
+    check_image_path(res, "checkpoint image run", min_tracked=min_tracked)
+    check_ate(res, "checkpoint image run")
+    return res
+
+
+def checkpoint_phase(dev, seq, out_dir: str, frames: int = CKPT_FRAMES,
+                     cut: int = CKPT_CUT, image_frames: int = CKPT_IMAGE_FRAMES,
+                     image_cut: int = CKPT_IMAGE_CUT, min_image_tracked: int = 45) -> dict:
+    """Checkpoint/resume on the card: the bearing-fed runs of `frames`
+    frames with PARSAC off and on (straight, and cut at `cut` + resumed:
+    four drives in processes of their own) beside the image run of
+    `seq` (cut at `image_cut`, played to `image_frames`) in this
+    process."""
+    import concurrent.futures
+    import multiprocessing
+
+    runs = [(flag, c) for flag in (False, True) for c in (None, cut)]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(runs), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(checkpoint_bearing_worker, flag, frames, c, str(dev),
+                               os.path.join(out_dir, f"bearings_{flag:d}.npz"))
+                   for flag, c in runs]
+        image = checkpoint_image_run(dev, seq, os.path.join(out_dir, "images.npz"),
+                                     cut=image_cut, n_frames=image_frames,
+                                     min_tracked=min_image_tracked)
+        done = [f.result(timeout=OBJECT_TIMEOUT_S) for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    t_cut = float(bench_bearing_scene(frames)["scene"].t[cut - 1])
+    return {"bearings": compare_bearing_runs("bearings, PARSAC off", done[0], done[1],
+                                             t_cut, False, frames, cut),
+            "parsac": compare_bearing_runs("bearings, PARSAC on", done[2], done[3],
+                                           t_cut, True, frames, cut),
+            "image": image}
+
+
+def bench_phase(dev, out_dir: str, frames: int = BENCH_FRAMES, width: int = 752,
+                height: int = 480, focal: float = 458.0,
+                min_share: float = BENCH_MIN_TRACKED_SHARE) -> dict:
+    """`tools.bench_pipeline` at the main path's geometry, 2 passes (the
+    first a warm-up) of `frames` frames, with the launch counts reset
+    before and read after; its JSON line must parse, at least
+    `min_share` of the frames tracked, ATE <= 0.25 m, and both kernels
+    launched as in the main drive."""
+    import io
+    import math
+
+    import torch
+
+    from xrslam_tpu_torch.frontend import image as img_ops
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools import bench_pipeline
+
+    argv = ["--frames", str(frames), "--width", str(width), "--height", str(height),
+            "--focal", str(focal), "--passes", "2", "--dir", out_dir,
+            "--device", torch.device(dev).type]
+    buf = io.StringIO()
+    build.reset_launch_counts()
+    with counting(klt, "track_keypoints") as pairs, \
+            counting(img_ops, "scharr") as scharr_calls, contextlib.redirect_stdout(buf):
+        bench_pipeline.main(argv)
+    line = buf.getvalue().strip().splitlines()[-1]
+    print("bench_pipeline " + " ".join(argv) + ": " + line, flush=True)
+    try:
+        res = json.loads(line)
+    except json.JSONDecodeError as e:
+        fail(f"benchmark: its line does not parse ({e}): {line}")
+    res.update(ate_m=res["ate_rmse_m"], launches={k.name: k.launches for k in build.KERNELS},
+               entry_launches={k.name: dict(k.entry_launches) for k in build.KERNELS},
+               frame_pairs_tracked=pairs[0], scharr_calls=scharr_calls[0])
+    check_image_path(res, "benchmark", min_tracked=math.ceil(min_share * frames))
+    check_ate(res, "benchmark")
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
@@ -1372,13 +1712,17 @@ def main(argv=None) -> None:
     seq = render_sequence(n_frames=N_FRAMES, width=752, height=480, focal=458.0)
     print(f"rendered {N_FRAMES} frames 752x480 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    drive = drive_phase(dev, seq)
+    drive, main_slam = drive_phase(dev, seq)
+    valid = validator_phase(main_slam.pipeline.swt)
+    del main_slam
     parsac_drive = parsac_drive_phase(dev, seq)
     pnp_drive = visual_pnp_phase(dev, seq)
     obj = object_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         dataset = dataset_phase(dev, os.path.join(tmp, "euroc"))
         loc = localizer_phase(dev, dataset)
+        ckpt = checkpoint_phase(dev, seq, tmp)
+        bench = bench_phase(dev, os.path.join(tmp, "bench"))
 
     # one record per kernel, from its main-path entry (K1's and K2's
     # fused entries), with entry 1's numbers beside it
@@ -1398,7 +1742,11 @@ def main(argv=None) -> None:
                             "visual_pnp": pnp_drive["launches"][k.name],
                             "dynamic_object": obj["launches"][k.name],
                             "dataset": dataset["launches"][k.name],
-                            "localizer": loc["launches"][k.name]}})
+                            "localizer": loc["launches"][k.name],
+                            "checkpoint_bearings": ckpt["bearings"]["launches"][k.name],
+                            "checkpoint_parsac": ckpt["parsac"]["launches"][k.name],
+                            "checkpoint_images": ckpt["image"]["launches"][k.name],
+                            "benchmark": bench["launches"][k.name]}})
     kernels[0]["longest_chain"] = k1["longest_chain"]
     kernels[0]["latency_floor_us"] = k1["latency_floor_us"]
     kernels[0]["chain_ms"] = k1["chain_ms"]
@@ -1419,6 +1767,7 @@ def main(argv=None) -> None:
                        "parsac_repeat": repeat, "parsac_drive": parsac_drive,
                        "visual_pnp_drive": pnp_drive, "object_drive": obj,
                        "dataset_drive": dataset, "localizer_drive": loc,
+                       "validator": valid, "checkpoint": ckpt, "benchmark": bench,
                        "seconds": time.perf_counter() - t_start,
                        "kernels": kernels}, f, indent=1, default=float)
     print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s", flush=True)

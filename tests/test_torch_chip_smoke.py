@@ -15,6 +15,13 @@ Phases 9 and 10 run at 320x240 on 60 frames, the kernels' wrappers
 replaced by their plain versions that count a launch as the kernel's
 wrappers do, and torch's sync debug mode (CUDA only) a no-op: every
 check of the two phases runs here, at the rehearsal's frame counts.
+
+The validator phase runs on the window of the committed JAX checkpoint
+(`tests/data/jax_circle_ckpt30.npz`) restored on the CPU. `slow`: the
+checkpoint phase's runs (the bearing-fed bench scene with PARSAC, 34
+frames cut at 30; the 320x240 image run, 42 frames cut at 34) and the
+benchmark phase at 320x240 on 44 frames, each with the counting plain
+wrappers.
 """
 
 import os
@@ -101,7 +108,9 @@ def test_parsac_repeat_phase_rehearsal(monkeypatch):
                    "count_equal": True, "ok": True}
 
 
-def test_dataset_and_localizer_phases_rehearsal(monkeypatch, tmp_path):
+def counting_plain_kernels(monkeypatch):
+    """Replace the kernels' wrappers by their plain versions, each
+    counting a launch as the wrapper does on the card."""
     from xrslam_tpu_torch.frontend import image as img_ops
 
     scharr = img_ops.scharr
@@ -123,6 +132,10 @@ def test_dataset_and_localizer_phases_rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(klt, "track_keypoints", k1)
     monkeypatch.setattr(gram, "reproj_factor_gram", k2)
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a, **k: None)
+
+
+def test_dataset_and_localizer_phases_rehearsal(monkeypatch, tmp_path):
+    counting_plain_kernels(monkeypatch)
     dev = torch.device("cpu")
     res = chip_smoke.dataset_phase(dev, str(tmp_path / "euroc"), n_frames=60, width=320,
                                    height=240, focal=260.0, min_tracked=20)
@@ -132,7 +145,10 @@ def test_dataset_and_localizer_phases_rehearsal(monkeypatch, tmp_path):
     assert res["entry_launches"]["reproj_gram"]["reproj_factor_gram_launch"] > 0
     assert {"read_image_time", "read_depth_time", "decode_time"} <= set(res["stage_ms"])
     assert res["frames_per_s_no_reader"] > res["frames_per_s"] > 0
-    assert res["cli"]["frames_tracked"] == 0  # 20 frames: still initializing
+    # the CLI's 40 frames with --viz: tracking from about frame 30, one
+    # overlay per frame the tracker processed (the 40th waits for its IMU)
+    assert res["cli"]["frames_tracked"] > 0
+    assert res["cli"]["overlays"] == res["cli"]["frames_processed"] == 39
     loc = chip_smoke.localizer_phase(dev, res, n_frames=60, min_tracked=20)
     assert loc["registered"] and loc["global_err_m"] < 0.5 and loc["slam_frame_dist_m"] > 1.0
     assert loc["ar_object"] > 0 and loc["ar_isolated"]
@@ -140,3 +156,62 @@ def test_dataset_and_localizer_phases_rehearsal(monkeypatch, tmp_path):
     assert loc["depth_keyframes"] > 0
     # the 60th frame still waits for its IMU when the drive stops at it
     assert loc["launches"]["klt_level"] == loc["frame_pairs_tracked"] == 58
+
+
+def test_validator_phase_rehearsal():
+    """`validator_phase` on the window of the committed JAX checkpoint
+    (K=12 slots, 96 landmark slots, a marginalization prior), restored
+    on the CPU: the four analytic Jacobians pass."""
+    from xrslam_tpu_torch.core.detail import SyntheticTracker
+    from xrslam_tpu_torch.utils import checkpoint
+    from tests.test_torch_checkpoint import JAX_CKPT, make_config
+
+    pipe = checkpoint.load_pipeline(JAX_CKPT, make_config(), SyntheticTracker(device="cpu"),
+                                    device="cpu")
+    res = chip_smoke.validator_phase(pipe.swt)
+    assert set(res["errors"]) == {"reproj_closed", "preint", "rotation", "marg"}
+    assert max(res["errors"].values()) < res["max_jacobian_error"]
+    assert res["K"] == 12 and res["L"] == 96 and res["landmarks"] > 20
+
+
+@pytest.mark.slow
+def test_checkpoint_phase_rehearsal(monkeypatch, tmp_path):
+    """The checkpoint phase's runs on the CPU at small sizes, in this
+    process (the card's phase spawns the bearing runs, whose processes
+    would not see the patched wrappers): the bearing-fed bench scene
+    with PARSAC on, 34 frames cut at 30, straight against resumed; and
+    the image run of the 320x240 scene, 42 frames cut at 34."""
+    from xrslam_tpu_torch.tools.make_dataset import render_sequence
+
+    counting_plain_kernels(monkeypatch)
+    dev = torch.device("cpu")
+    frames, cut = 34, 30
+    straight = chip_smoke.checkpoint_bearing_run(True, frames, None, dev)
+    resumed = chip_smoke.checkpoint_bearing_run(True, frames, cut, dev,
+                                                str(tmp_path / "b.npz"))
+    t_cut = float(chip_smoke.bench_bearing_scene(frames)["scene"].t[cut - 1])
+    res = chip_smoke.compare_bearing_runs("rehearsal", straight, resumed, t_cut, True,
+                                          frames, cut)
+    assert res["tail_frames"] >= 3 and res["tail_err_m"] <= chip_smoke.CKPT_TAIL_TOL_M
+    assert res["restored_on"] == "cpu" and res["launches"]["klt_level"] == 0
+    seq = render_sequence(n_frames=42)
+    img = chip_smoke.checkpoint_image_run(dev, seq, str(tmp_path / "i.npz"), cut=34,
+                                          n_frames=42, min_tracked=5)
+    assert img["tracked_before_cut"] > 0 and img["frames_tracked"] > img["tracked_before_cut"]
+    # the first frame after the resume has no previous pyramid
+    assert img["frame_pairs_tracked"] == 40 == img["launches"]["klt_level"]
+
+
+@pytest.mark.slow
+def test_bench_phase_rehearsal(monkeypatch, tmp_path):
+    """`bench_phase` at 320x240 on 44 frames (2 passes) on the CPU: its
+    line parses, the kernels count as the main drive's."""
+    counting_plain_kernels(monkeypatch)
+    res = chip_smoke.bench_phase(torch.device("cpu"), str(tmp_path), frames=44, width=320,
+                                 height=240, focal=260.0, min_share=0.2)
+    assert res["device"] == "cpu" and res["card"] is None
+    assert len(res["pass_frames_per_s"]) == 2
+    assert res["latency_ms"]["frames"] == 43 and res["latency_ms"]["p90"] >= \
+        res["latency_ms"]["median"] > 0
+    # two passes of 43 processed frames: 42 frame pairs each
+    assert res["frame_pairs_tracked"] == 2 * 42 == res["launches"]["klt_level"]

@@ -492,3 +492,36 @@ def test_pnp_dlt_and_refine_on_the_card(dev):
     np.testing.assert_allclose(q_c.cpu().numpy(), q_h.numpy(), rtol=0, atol=1e-9)
     np.testing.assert_allclose(p_c.cpu().numpy(), p_h.numpy(), rtol=0, atol=1e-9)
     assert float(torch.linalg.vector_norm(p_h - p_true)) < 1e-6
+
+
+def test_checkpoint_restore_stays_on_its_device_type(dev, tmp_path):
+    """A checkpoint restores onto the device it is asked for, its
+    generators' states with it; a state saved from one device type does
+    not load into a generator on the other (ValueError, never a silent
+    reseed). The window state is the committed JAX checkpoint's
+    (`tests/data/jax_circle_ckpt30.npz`, its configuration the
+    bearing-fed tests' `object_scene.base_config`)."""
+    import os
+
+    from xrslam_tpu_torch.core.detail import SyntheticTracker
+    from xrslam_tpu_torch.tools.object_scene import base_config
+    from xrslam_tpu_torch.utils import checkpoint
+
+    jax_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                            "jax_circle_ckpt30.npz")
+    cfg = base_config()
+    paths = {}
+    for d in ("cpu", dev):
+        pipe = checkpoint.load_pipeline(jax_file, cfg, SyntheticTracker(device=d), device=d)
+        assert pipe.swt.bin_conf.device.type == torch.device(d).type
+        assert pipe.swt.marg.sqrt_inv_cov.device.type == torch.device(d).type
+        torch.rand((3,), generator=pipe.swt.generator, device=pipe.device)
+        paths[torch.device(d).type] = str(tmp_path / f"{torch.device(d).type}.npz")
+        checkpoint.save_pipeline(paths[torch.device(d).type], pipe)
+    same = checkpoint.load_pipeline(paths["cuda"], cfg, SyntheticTracker(device=dev), device=dev)
+    assert same.swt.generator.device.type == "cuda"
+    with pytest.raises(ValueError, match="cpu generator state"):
+        checkpoint.load_pipeline(paths["cpu"], cfg, SyntheticTracker(device=dev), device=dev)
+    with pytest.raises(ValueError, match="cuda generator state"):
+        checkpoint.load_pipeline(paths["cuda"], cfg, SyntheticTracker(device="cpu"),
+                                 device="cpu")

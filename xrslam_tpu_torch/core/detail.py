@@ -368,6 +368,11 @@ class VIOPipeline:
     def state(self) -> str:
         return "tracking" if self.swt is not None else "initializing"
 
+    @property
+    def frames_processed(self) -> int:
+        """Camera frames the tracker (and the backend) have processed."""
+        return self._frame_count
+
 
 class SyntheticTracker:
     """Feature tracker fed by ground-truth correspondences: the frame's

@@ -269,15 +269,24 @@ def events(seq: dict):
     return ev
 
 
-def run_sequence(api_module, slam, seq: dict, max_frames=None, on_frame=None):
+def run_sequence(api_module, slam, seq: dict, max_frames=None, on_frame=None,
+                 start: int = 0, stop=None):
     """Feed `seq` to an XRSLAM instance `slam` of `api_module` (the
     port's api, or any module with the same SensorType/ResultType/State
-    surface). Returns (ts, ps (N,3)) of the tracked frames' body poses.
-    `on_frame(i, slam)` runs after each frame."""
+    surface): the events from frame `start`'s image up to, not
+    including, frame `stop`'s (to the end without `stop`), and at most
+    `max_frames` images. Returns (ts, ps (N,3)) of the tracked frames'
+    body poses. `on_frame(i, slam)` runs after each frame."""
     A = api_module
     ts, ps = [], []
     n_img = 0
+    lo = (seq["t_cam"][start], 0)
+    hi = None if stop is None or stop >= len(seq["t_cam"]) else (seq["t_cam"][stop], 0)
     for t, kind, i in events(seq):
+        if (t, kind) < lo:
+            continue
+        if hi is not None and (t, kind) >= hi:
+            break
         if kind == 1:
             slam.push_sensor_data(A.SensorType.GYROSCOPE, t, seq["imu_w"][i])
         elif kind == 2:

@@ -78,20 +78,21 @@ def object_config(scene: dict, **kw) -> Config:
     return base_config(**kw)
 
 
-def drive(pipe, scene: dict, max_frames=None, on_frame=None):
-    """Push the scene through `pipe` (a VIOPipeline with a
-    SyntheticTracker): each interval's IMU samples, one sample just past
-    the frame time, then the frame's bearings with the landmark index as
-    the track hint. Returns (est_t, est_p (N,3)) of the latest optimized
-    state on every frame while tracking. `on_frame(k, pipe)` runs after
-    each frame and may return True to stop."""
+def drive(pipe, scene: dict, max_frames=None, on_frame=None, start: int = 0):
+    """Push the scene's frames `start`.. through `pipe` (a VIOPipeline
+    with a SyntheticTracker): each interval's IMU samples, one sample
+    just past the frame time, then the frame's bearings with the
+    landmark index as the track hint. Returns (est_t, est_p (N,3)) of
+    the latest optimized state on every frame while tracking; the drive
+    stops before frame `max_frames`. `on_frame(k, pipe)` runs after each
+    frame and may return True to stop."""
     sc = scene["scene"]
     ts = sc.t.numpy()
     imu_t, imu_w, imu_a = sc.imu_t.numpy(), sc.imu_w.numpy(), sc.imu_a.numpy()
     bearings, mask, C = scene["bearings"], scene["mask"], scene["capacity"]
     n = len(ts) if max_frames is None else min(max_frames, len(ts))
     est_t, est_p = [], []
-    for k in range(n):
+    for k in range(start, n):
         if k > 0:
             for s in range(imu_t.shape[1]):
                 t = float(imu_t[k - 1, s])
