@@ -124,10 +124,43 @@
    to the main drive's kernel checks, >= 45 tracked and ATE <= 0.25 m;
    prints the file sizes and the save and load times;
 12. the benchmark (`tools.bench_pipeline.main`) at 752x480, focal 458,
-   two passes (the first a warm-up) of 75 frames; fails unless its JSON
+   one timed pass of 75 frames (no warm-up pass); fails unless its JSON
    line parses, >= 60% of the frames were tracked, ATE <= 0.25 m and
    both kernels launched as in 5; prints the line (frames/s, per-frame
    latency median and p90, stage means).
+
+Beside these:
+- K2's fused entry on a batch of 4 windows (K_sub=11, L=384, f64) in
+  one call (2 launches), after phase 3: against its plain version at
+  rtol/atol 1e-9, each row bit-equal to a single-window call, the N=1
+  batch bit-equal to the single-window call; timed beside 4 single
+  calls, with its bound;
+- the native host runtime (`xrslam_tpu_torch.native`, g++ from
+  native/xr_host.cpp), after phase 5: built, `poisson_filter` called at
+  least once per tracked frame pair of the main drive and equal to the
+  Python `_poisson_accept` on every call it recorded (both timed); the
+  tracker's stage split; in phase 9 every camera PNG decoded by
+  `png_load_gray`;
+- the C ABI, after phase 10: the port's shim (`native.build_capi`)
+  loaded with ctypes drives the main scene's first 45 frames at 752x480
+  through XRSLAMCreate / XRSLAMPushSensorData / XRSLAMRunOneFrame /
+  XRSLAMGetResult on the card; fails unless half of the frames after
+  frame 28 tracked, ATE <= 0.25 m and both kernels launched as in 5;
+  then `tests/data/capi_roundtrip.c`, compiled against native/XRSLAM.h
+  and the shim, runs as a process on the card and must print every
+  CAPI_* line (where Python is not a shared library the link cannot
+  work, and the line says so instead);
+- the ROS node (`tools.ros_node.RosVioNode`) on the card, the dataset's
+  first 20 frames with the distortion flag on: every image drained into
+  the engine, each remapped by the native runtime;
+- after phase 12, `tools.multiseq` at 752x480: 4 sequences (seeds 3, 5,
+  11, 32) of 45 frames, sequential then batched (`solve_chained_batch`,
+  K2 over the batch); fails unless every sequence in both modes tracked
+  half of its frames after frame 28 at ATE <= 0.25 m, a K2 call served
+  more than one window, and the first batched flush's windows solved
+  one by one agree with their rows within 1e-9; prints both modes'
+  frames/s, the speedup, K1/K2 launches per sequence-frame and where
+  the modes part, if they do.
 
 Each drive sets the launch counts to 0 just before it and reads them
 just after; the `kernels` line gives the main path's as `launches` and
@@ -178,6 +211,7 @@ CKPT_STATE_TOL = 1e-12
 # needs about 70 (the backend starts near frame 29); cut from 80 with
 # the image checkpoint run
 BENCH_FRAMES = 75
+# one timed pass and no warm-up: the main drive has warmed the process
 BENCH_MIN_TRACKED_SHARE = 0.6
 # The dynamic-object scene's outcome turns on which frame the judge
 # first returns True, a matter of the RANSAC draws: over Config.random
@@ -688,23 +722,49 @@ def guard_check(dev) -> dict:
     return res
 
 
-def counted_drive(slam, seq, dev, max_frames=None) -> dict:
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Keeps the arguments of every call of `module.name` while the block
+    runs (references, no copies: the callers pass fresh arrays)."""
+    fn = getattr(module, name)
+    calls = []
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def counted_drive(slam, seq, dev, max_frames=None, poisson_args=None) -> dict:
     """`timed_run` of `seq` through `slam` with every kernel launch count
-    set to 0 just before and read just after, and the frame pairs the
-    tracker tracked and the image-wide Scharr calls counted."""
+    and the native runtime's call counts set to 0 just before and read
+    just after, and the frame pairs the tracker tracked and the
+    image-wide Scharr calls counted. A list `poisson_args` receives the
+    arguments of every `native.poisson_filter` call."""
+    from xrslam_tpu_torch import native
     from xrslam_tpu_torch.frontend import image as img_ops
     from xrslam_tpu_torch.frontend import klt
     from xrslam_tpu_torch.kernels import build
     from xrslam_tpu_torch.tools.make_dataset import timed_run
 
     build.reset_launch_counts()
+    native.reset_counts()
     with counting(klt, "track_keypoints") as pairs, \
-            counting(img_ops, "scharr") as scharr_calls:
+            counting(img_ops, "scharr") as scharr_calls, \
+            recording(native, "poisson_filter") as poisson:
         res = timed_run(slam, seq, dev, max_frames=max_frames)
     res["launches"] = {k.name: k.launches for k in build.KERNELS}
     res["entry_launches"] = {k.name: dict(k.entry_launches) for k in build.KERNELS}
     res["frame_pairs_tracked"] = pairs[0]
     res["scharr_calls"] = scharr_calls[0]
+    res["native_calls"] = dict(native.CALLS)
+    if poisson_args is not None:
+        poisson_args.extend(poisson)
     return res
 
 
@@ -754,7 +814,9 @@ def drive_phase(dev, seq) -> dict:
           flush=True)
     slam = api.XRSLAM(config=seq["config"], device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    res = counted_drive(slam, seq, dev)
+    poisson_args = []
+    res = counted_drive(slam, seq, dev, poisson_args=poisson_args)
+    res["poisson_args"] = poisson_args
     res["peak_mem_mb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     res["warm_pass"] = {k: warm[k] for k in ("frames_tracked", "ate_m",
                                              "frames_per_s")}
@@ -890,12 +952,12 @@ def dataset_phase(dev, out_dir: str, n_frames: int = N_FRAMES, width: int = 752,
     keyframe path."""
     import torch
 
-    from xrslam_tpu_torch import api
+    from xrslam_tpu_torch import api, native
     from xrslam_tpu_torch.config import load_config
     from xrslam_tpu_torch.eval import trajectory as traj
     from xrslam_tpu_torch.frontend import image as img_ops
     from xrslam_tpu_torch.frontend import klt
-    from xrslam_tpu_torch.io.dataset import load_euroc_groundtruth
+    from xrslam_tpu_torch.io.dataset import load_euroc_groundtruth, load_gray_pillow
     from xrslam_tpu_torch.kernels import build
     from xrslam_tpu_torch.tools import run_dataset
     from xrslam_tpu_torch.tools.make_dataset import render_dataset
@@ -913,6 +975,7 @@ def dataset_phase(dev, out_dir: str, n_frames: int = N_FRAMES, width: int = 752,
                                     len(slam.get_result(api.ResultType.FEATURES))))
 
     build.reset_launch_counts()
+    native.reset_counts()
     t0 = time.perf_counter()
     with counting(klt, "track_keypoints") as pairs, \
             counting(img_ops, "scharr") as scharr_calls:
@@ -933,6 +996,7 @@ def dataset_phase(dev, out_dir: str, n_frames: int = N_FRAMES, width: int = 752,
            "launches": {k.name: k.launches for k in build.KERNELS},
            "entry_launches": {k.name: dict(k.entry_launches) for k in build.KERNELS},
            "frame_pairs_tracked": pairs[0], "scharr_calls": scharr_calls[0],
+           "native_calls": dict(native.CALLS),
            "stage_ms": {k: v * 1e3 for k, v in sorted(slam.times.means().items())}}
     gt_t, gt_p, _ = load_euroc_groundtruth(paths["root"])
     ia, ib = traj.associate(ts, gt_t)
@@ -975,6 +1039,25 @@ def dataset_phase(dev, out_dir: str, n_frames: int = N_FRAMES, width: int = 752,
              "depth-seeded")
     if not seen["results"] or min(min(r) for r in seen["results"]) == 0:
         fail("dataset drive: LANDMARKS or FEATURES came back empty while tracking")
+    if res["native_calls"]["png_load_gray"] != n_frames:
+        fail(f"dataset drive: {res['native_calls']['png_load_gray']} native PNG decodes "
+             f"for {n_frames} camera images")
+    # the camera PNG decode alone: native and Pillow in turns on the same files
+    cam_dir = os.path.join(paths["root"], "cam0", "data")
+    files = sorted(os.path.join(cam_dir, f) for f in os.listdir(cam_dir))[:20]
+    t_dec = {"native": 0.0, "pillow": 0.0}
+    for rep in range(2):
+        for name, fn in (("native", native.png_load_gray), ("pillow", load_gray_pillow))[
+                ::1 - 2 * rep]:
+            t0 = time.perf_counter()
+            for f in files:
+                fn(f)
+            t_dec[name] += (time.perf_counter() - t0) / (2 * len(files)) * 1e3
+    res["png_decode_ms"] = t_dec
+    print(f"dataset drive: {res['native_calls']['png_load_gray']} camera PNGs of "
+          f"{n_frames} decoded by the native runtime (png_load_gray); one "
+          f"{width}x{height} camera PNG: native {t_dec['native']:.3f} ms, Pillow "
+          f"{t_dec['pillow']:.3f} ms (20 files, twice each, in turns; host)", flush=True)
 
     viz_dir = os.path.join(out_dir, "viz")
     cli = run_dataset.main(["euroc://" + paths["root"], "--slam-config", paths["slam_yaml"],
@@ -1633,8 +1716,8 @@ def checkpoint_phase(dev, seq, out_dir: str, frames: int = CKPT_FRAMES,
 def bench_phase(dev, out_dir: str, frames: int = BENCH_FRAMES, width: int = 752,
                 height: int = 480, focal: float = 458.0,
                 min_share: float = BENCH_MIN_TRACKED_SHARE) -> dict:
-    """`tools.bench_pipeline` at the main path's geometry, 2 passes (the
-    first a warm-up) of `frames` frames, with the launch counts reset
+    """`tools.bench_pipeline` at the main path's geometry, one timed pass
+    of `frames` frames and no warm-up, with the launch counts reset
     before and read after; its JSON line must parse, at least
     `min_share` of the frames tracked, ATE <= 0.25 m, and both kernels
     launched as in the main drive."""
@@ -1649,7 +1732,7 @@ def bench_phase(dev, out_dir: str, frames: int = BENCH_FRAMES, width: int = 752,
     from xrslam_tpu_torch.tools import bench_pipeline
 
     argv = ["--frames", str(frames), "--width", str(width), "--height", str(height),
-            "--focal", str(focal), "--passes", "2", "--dir", out_dir,
+            "--focal", str(focal), "--passes", "1", "--warmup", "0", "--dir", out_dir,
             "--device", torch.device(dev).type]
     buf = io.StringIO()
     build.reset_launch_counts()
@@ -1667,6 +1750,445 @@ def bench_phase(dev, out_dir: str, frames: int = BENCH_FRAMES, width: int = 752,
                frame_pairs_tracked=pairs[0], scharr_calls=scharr_calls[0])
     check_image_path(res, "benchmark", min_tracked=math.ceil(min_share * frames))
     check_ate(res, "benchmark")
+    return res
+
+
+# K2's batch axis: the subframe path's window (SlidingWindowTracker.K_sub:
+# 1 + max(ROT_MERGE_TRIGGER 9, subframe size 3) + 1) at 4 windows
+K_SUB = 11
+K2_BATCH = 4
+CAPI_FRAMES = 45  # cut from 60 for the script's time (PERF.md section 4)
+ROS_FRAMES = 20
+MULTISEQ_N = 4
+MULTISEQ_FRAMES = 45  # cut from 60 for the script's time (PERF.md section 4)
+MULTISEQ_TOL = 1e-9
+# the main drive's tracker per frame with the Python spacing filter (PERF.md
+# section 5)
+TRACKER_MS_PYTHON_FILTER = 43.7
+
+
+def factor_gram_batch_phase(dev) -> dict:
+    """K2's fused entry on a batch of 4 windows (K_sub=11, L=384, f64,
+    seeded `reproj_window`s) in one call: against its plain version at
+    rtol/atol 1e-9, each row bit-equal to a single-window call on that
+    window, the N=1 batch bit-equal to the single-window call; timed
+    beside 4 single calls."""
+    import torch
+
+    from xrslam_tpu_torch.estimation import factors, gram
+    from xrslam_tpu_torch.io.synthetic import reproj_window
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.utils.tree import tree_map
+
+    K, L, N = K_SUB, 384, K2_BATCH
+    pairs = [reproj_window(K, L, seed=s, dtype=torch.float64, device=dev)
+             for s in range(2, 2 + N)]
+
+    def stack(trees):
+        return tree_map(lambda *x: torch.stack(x), *trees)
+
+    state, data = stack([p[0] for p in pairs]), stack([p[1] for p in pairs])
+    before = (build.REPROJ_GRAM.launches, dict(build.REPROJ_GRAM.batched))
+    out = gram.reproj_factor_gram_cuda(state, data)
+    launches = build.REPROJ_GRAM.launches - before[0]
+    batched = build.REPROJ_GRAM.batched["windows"] - before[1]["windows"]
+    plain = gram.reproj_factor_gram_plain(state, data)
+    singles = [gram.reproj_factor_gram_cuda(s, d) for s, d in pairs]
+    one = gram.reproj_factor_gram_cuda(tree_map(lambda x: x[:1], state),
+                                       tree_map(lambda x: x[:1], data))
+    torch.cuda.synchronize()
+    names = GRAM_NAMES + ["cost"]
+    if launches != 1 or batched != N:
+        fail(f"K2 batched: one call counted {launches} launches for {batched} windows")
+    res = {"N": N, "K": K, "L": L, "grid": [*gram.grid(K, L), N]}
+    res["max_abs_err"] = check_close("K2 batched vs plain", names, plain, out, 1e-9)
+    for i, single in enumerate(singles):
+        for n, a, b in zip(names, single, out):
+            if not torch.equal(a, b[i]):
+                fail(f"K2 batched: row {i} {n} differs from the single-window call "
+                     f"(max |Δ| {float((a - b[i]).abs().max()):.3e})")
+    for n, a, b in zip(names, singles[0], one):
+        if not torch.equal(a, b[0]):
+            fail(f"K2 batched: the N=1 call's {n} differs from the single-window call")
+    check_repeat("K2 batched", lambda: gram.reproj_factor_gram_cuda(state, data))
+    res.update(timed_pair(lambda: gram.reproj_factor_gram_cuda(state, data),
+                          lambda: gram.reproj_factor_gram_plain(state, data)))
+
+    def four():
+        for s_, d_ in pairs:
+            gram.reproj_factor_gram_cuda(s_, d_)
+
+    f1 = cuda_ms(four, reps=100)
+    f2 = cuda_ms(four, reps=100)
+    res["four_single_ms"] = (f1 + f2) / 2
+    res["four_single_device_ms"] = device_ms(four)
+    n_act = sum(int(factors._active_mask(d).sum()) for _, d in pairs)
+    res["active_observations"] = n_act
+    ins = (state.q, state.p, state.inv_depth, data.q_bc, data.p_bc, data.bearings,
+           data.obs_mask, data.ref_idx, data.sqrt_inv_cov2, data.landmark_mask)
+    res.update(bound(nbytes(*ins, *out),
+                     n_act * (FACTOR_FLOPS + GRAM_FLOPS_ALL + GRAM_FLOPS_ANCHORED)
+                     + (N * K * L - n_act) * 8 * 3, state.p.element_size()))
+    print(f"K2 reproj_factor_gram batched (N={N} windows, K={K}, L={L}, f64, grid "
+          f"{res['grid']}): max |Δ| {res['max_abs_err']:.3e} vs plain (rtol/atol 1e-9), "
+          f"every row bit-equal to its single-window call, N=1 bit-equal to the "
+          f"single-window call, repeat bit-equal, 1 call = 2 launches; per call "
+          f"{res['ms']:.4f} ms (device alone {res['device_ms']}), plain "
+          f"{res['plain_ms']:.4f} ms, 4 single calls {res['four_single_ms']:.4f} ms "
+          f"(device alone {res['four_single_device_ms']}), bound "
+          f"{res['bound_ms'] * 1e3:.3f} us by {res['bound_by']}", flush=True)
+    return res
+
+
+def native_phase(drive: dict) -> dict:
+    """The native host runtime on the main drive: the library built and
+    `poisson_filter` called at least once per tracked frame pair (the
+    track path's filter; the detection's runs beside it); on the drive's
+    recorded inputs, its accept masks equal the Python `_poisson_accept`
+    and both are timed; the tracker's stage split."""
+    from xrslam_tpu_torch import native
+    from xrslam_tpu_torch.frontend.tracker import _poisson_accept
+
+    info = native.build_info()
+    if not info.get("library"):
+        fail("native runtime: the library was not built")
+    calls, pairs = drive["native_calls"]["poisson_filter"], drive["frame_pairs_tracked"]
+    if calls < pairs:
+        fail(f"native runtime: poisson_filter called {calls} times for {pairs} tracked "
+             "frame pairs")
+    args = drive.pop("poisson_args")
+    t_nat = t_py = 0.0
+    for a, kw in args:
+        t0 = time.perf_counter()
+        got = native.poisson_filter(*a, **kw)
+        t1 = time.perf_counter()
+        ref = _poisson_accept(*a, **kw)
+        t_py += time.perf_counter() - t1
+        t_nat += t1 - t0
+        if not np.array_equal(got, ref):
+            fail("native runtime: poisson_filter disagrees with _poisson_accept on a "
+                 "call of the main drive")
+    sm = drive["stage_ms"]
+    split = {k: sm.get(k, float("nan")) for k in (
+        "tracker_preprocess_time", "tracker_dispatch_time", "tracker_fetch_time",
+        "feature_tracker_time")}
+    split["rest"] = split["feature_tracker_time"] - sum(
+        split[k] for k in ("tracker_preprocess_time", "tracker_dispatch_time",
+                           "tracker_fetch_time"))
+    res = {"build": {k: info[k] for k in ("library", "cached", "seconds")},
+           "poisson_calls": calls, "frame_pairs_tracked": pairs,
+           "checked_calls": len(args), "native_ms": t_nat / max(len(args), 1) * 1e3,
+           "python_ms": t_py / max(len(args), 1) * 1e3, "tracker_split_ms": split}
+    print(f"native runtime: {os.path.basename(info['library'])} built in "
+          f"{info['seconds']:.1f} s; poisson_filter {calls} calls over {pairs} tracked "
+          f"frame pairs, equal to _poisson_accept on all {len(args)} recorded calls, "
+          f"{res['native_ms']:.4f} ms a call against {res['python_ms']:.4f} ms in "
+          f"Python; tracker per frame (ms): preprocess "
+          f"{split['tracker_preprocess_time']:.2f}, dispatch "
+          f"{split['tracker_dispatch_time']:.2f}, fetch {split['tracker_fetch_time']:.2f}, "
+          f"rest {split['rest']:.2f}, total {split['feature_tracker_time']:.2f} (with the "
+          f"Python filter: {TRACKER_MS_PYTHON_FILTER} total)", flush=True)
+    return res
+
+
+class CapiEngine:
+    """`api.XRSLAM`'s push/run/result surface over the port's C ABI shim
+    loaded with ctypes, so that `make_dataset.run_sequence` drives the C
+    entry points (XRSLAMPushSensorData, XRSLAMRunOneFrame,
+    XRSLAMGetResult)."""
+
+    def __init__(self, lib):
+        import ctypes
+
+        class Vec3(ctypes.Structure):  # XRSLAMAcceleration / XRSLAMGyroscope
+            _fields_ = [("data", ctypes.c_double * 3), ("timestamp", ctypes.c_double)]
+
+        class Image(ctypes.Structure):  # XRSLAMImage
+            _fields_ = [("data", ctypes.c_void_p), ("timeStamp", ctypes.c_double),
+                        ("stride", ctypes.c_int), ("camera_id", ctypes.c_int),
+                        ("channel", ctypes.c_int), ("ext", ctypes.c_void_p)]
+
+        class Pose(ctypes.Structure):  # XRSLAMPose
+            _fields_ = [("quaternion", ctypes.c_double * 4),
+                        ("translation", ctypes.c_double * 3),
+                        ("timestamp", ctypes.c_double)]
+
+        self.ct, self.lib = ctypes, lib
+        self.Vec3, self.Image, self.Pose = Vec3, Image, Pose
+        lib.XRSLAMPushSensorData.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.XRSLAMGetResult.argtypes = [ctypes.c_int, ctypes.c_void_p]
+
+    def push_sensor_data(self, kind, t, data) -> None:
+        from xrslam_tpu_torch import api
+
+        ct = self.ct
+        if kind == api.SensorType.CAMERA:
+            img = np.ascontiguousarray(np.round(np.asarray(data) * 255.0).astype(np.uint8))
+            msg = self.Image(img.ctypes.data, t, img.shape[1], 0, 1, None)
+        else:
+            msg = self.Vec3((ct.c_double * 3)(*[float(v) for v in data]), t)
+        self.lib.XRSLAMPushSensorData(int(kind), ct.byref(msg))
+
+    def run_one_frame(self) -> None:
+        self.lib.XRSLAMRunOneFrame()
+
+    def flush(self) -> None:
+        """The C surface has none: XRSLAMDestroy flushes."""
+
+    def get_result(self, rt):
+        from types import SimpleNamespace
+
+        from xrslam_tpu_torch import api
+
+        if rt == api.ResultType.STATE:
+            st = self.ct.c_int(-1)
+            self.lib.XRSLAMGetResult(int(rt), self.ct.byref(st))
+            return api.State(st.value)
+        pose = self.Pose()
+        self.lib.XRSLAMGetResult(int(rt), self.ct.byref(pose))
+        return SimpleNamespace(timestamp=pose.timestamp,
+                               quaternion=np.array(pose.quaternion),
+                               translation=np.array(pose.translation))
+
+
+def capi_phase(dev, seq, dataset: dict, out_dir: str, n_frames: int = CAPI_FRAMES) -> dict:
+    """The port's C ABI: the shim (`native.build_capi`) loaded with
+    ctypes into this process drives the main scene's first `n_frames`
+    frames through XRSLAMCreate (the dataset drive's YAML pair, device
+    $XRSLAM_TORCH_DEVICE, the card by default), XRSLAMPushSensorData,
+    XRSLAMRunOneFrame and XRSLAMGetResult; fails unless half of the
+    frames after the backend's start tracked, ATE <= 0.25 m and both
+    kernels launched as in the main drive. Then `tests/data/capi_roundtrip.c`,
+    compiled against native/XRSLAM.h and the shim, runs as a process of
+    its own on the card and must print every CAPI_* line."""
+    import ctypes
+    import math
+    import shutil
+    import site
+
+    from xrslam_tpu_torch import api, capi_host, native
+    from xrslam_tpu_torch.frontend import image as img_ops
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools import multiseq
+    from xrslam_tpu_torch.tools.make_dataset import ate, run_sequence
+
+    import torch
+
+    dev_type = torch.device(dev).type  # the card; the CPU only in a rehearsal
+    os.environ[capi_host.DEVICE_ENV] = dev_type
+    t0 = time.perf_counter()
+    info = native.build_capi()
+    build_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(info["library"])
+    lib.XRSLAMCreate.argtypes = [ctypes.c_char_p] * 4 + [ctypes.c_void_p]
+    lib.XRSLAMGetLastError.restype = ctypes.c_char_p
+    paths = dataset["paths"]
+    if lib.XRSLAMCreate(paths["slam_yaml"].encode(), paths["device_yaml"].encode(),
+                        None, None, None) != 1:
+        fail(f"C ABI: XRSLAMCreate failed: {lib.XRSLAMGetLastError().decode()}")
+    engine_dev = str(capi_host._engine.device)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counting(klt, "track_keypoints") as pairs, \
+            counting(img_ops, "scharr") as scharr_calls:
+        ts, ps = run_sequence(api, CapiEngine(lib), seq, max_frames=n_frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lib.XRSLAMDestroy()
+    res = {"frames": n_frames, "frames_tracked": len(ts), "ate_m": ate(seq, ts, ps),
+           "seconds": seconds, "frames_per_s": n_frames / seconds, "device": engine_dev,
+           "shim": os.path.basename(info["library"]), "build_s": build_s,
+           "links_libpython": info["links_libpython"],
+           "launches": {k.name: k.launches for k in build.KERNELS},
+           "entry_launches": {k.name: dict(k.entry_launches) for k in build.KERNELS},
+           "frame_pairs_tracked": pairs[0], "scharr_calls": scharr_calls[0]}
+    need = math.ceil((n_frames - multiseq.BACKEND_START) / 2)
+    h, w = seq["images"].shape[1:3]
+    print(f"C ABI drive ({res['shim']}, built in {build_s:.1f} s, in this process on "
+          f"{engine_dev}; {w}x{h}, {n_frames} frames): {len(ts)} tracked (need {need}), "
+          f"ATE {res['ate_m']:.4f} m, {res['frames_per_s']:.3f} frames/s, launches "
+          f"{res['launches']} over {pairs[0]} frame pairs", flush=True)
+    if not engine_dev.startswith(dev_type):
+        fail(f"C ABI: the engine ran on {engine_dev}")
+    check_image_path(res, "C ABI drive", min_tracked=need)
+    check_ate(res, "C ABI drive")
+
+    # the standalone C consumer, in a process of its own
+    cc = shutil.which("gcc") or shutil.which("cc")
+    if cc is None:
+        fail("C ABI: no C compiler to build tests/data/capi_roundtrip.c")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    exe = os.path.join(out_dir, "capi_roundtrip")
+    link = subprocess.run(
+        [cc, os.path.join(repo, "tests", "data", "capi_roundtrip.c"), "-I",
+         os.path.join(repo, "native"), info["library"],
+         f"-Wl,-rpath,{os.path.dirname(info['library'])}", "-o", exe],
+        capture_output=True, text=True)
+    if link.returncode != 0:
+        if info["links_libpython"]:
+            fail(f"C ABI: linking capi_roundtrip.c failed: {link.stderr[-600:]}")
+        res["standalone"] = {"linked": False, "reason": "this Python has no shared "
+                             "libpython: " + link.stderr[-300:]}
+        print(f"C ABI round trip: not linked, {res['standalone']['reason']}", flush=True)
+        return res
+    slam_yaml, dev_yaml = (os.path.join(out_dir, f) for f in ("rt_slam.yaml", "rt_device.yaml"))
+    with open(slam_yaml, "w") as f:
+        f.write("%YAML:1.0\nsliding_window:\n  size: 8\n  subframe_size: 3\n"
+                "feature_tracker:\n  min_keypoint_distance: 8.0\n"
+                "  max_keypoint_detection: 40\nsolver:\n  iteration_limit: 5\n")
+    with open(dev_yaml, "w") as f:
+        f.write("%YAML:1.0\ncam0:\n  resolution: [64, 48]\n"
+                "  intrinsics: [60.0, 60.0, 32.0, 24.0]\n")
+    env = dict(os.environ)
+    env.pop("PYTHONHOME", None)
+    env.update(PYTHONPATH=os.pathsep.join([repo, *site.getsitepackages()]),
+               **{capi_host.DEVICE_ENV: dev_type})
+    t0 = time.perf_counter()
+    r = subprocess.run([exe, slam_yaml, dev_yaml], capture_output=True, text=True,
+                       env=env, timeout=300)
+    out = {}
+    for line in r.stdout.splitlines():
+        parts = line.split()
+        if parts and parts[0].startswith("CAPI_"):
+            out[parts[0]] = parts[1:]
+    want = {"CAPI_OK": None, "CAPI_STATE0": ["0"], "CAPI_STATE1": ["0"]}
+    ok = (r.returncode == 0 and all(k in out and (v is None or out[k] == v)
+                                    for k, v in want.items())
+          and bool(out.get("CAPI_VERSION")) and float(out["CAPI_FX"][0]) == 60.0
+          and float(out["CAPI_FX"][2]) == 24.0 and int(out["CAPI_NFEATURES"][0]) > 0
+          and int(out["CAPI_NLANDMARKS"][0]) == 0 and float(out["CAPI_BIAS"][0]) == 0.0)
+    res["standalone"] = {"linked": True, "seconds": time.perf_counter() - t0,
+                         "lines": {k: " ".join(v) for k, v in out.items()}}
+    print(f"C ABI round trip (capi_roundtrip.c linked against the shim, its own "
+          f"process on {dev_type}, {res['standalone']['seconds']:.1f} s): " + "; ".join(
+              f"{k} {v}" for k, v in res["standalone"]["lines"].items()), flush=True)
+    if not ok:
+        fail(f"C ABI round trip: exit {r.returncode}, lines {out}, stderr "
+             f"{r.stderr[-800:]}")
+    return res
+
+
+def ros_phase(dev, dataset: dict, n_frames: int = ROS_FRAMES) -> dict:
+    """`tools.ros_node.RosVioNode` on the card, built from the dataset
+    drive's config with the distortion flag on, fed the dataset's first
+    `n_frames` frames and their IMU through handle_image / handle_imu:
+    fails unless every image was drained into the engine and each was
+    remapped by the native runtime."""
+    import dataclasses
+
+    import torch
+
+    from xrslam_tpu_torch import api, native
+    from xrslam_tpu_torch.config import load_config
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.io.dataset import DataType, create_reader
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools.ros_node import RosVioNode
+
+    paths = dataset["paths"]
+    cfg = load_config(paths["slam_yaml"], paths["device_yaml"])
+    node = RosVioNode(dataclasses.replace(cfg, camera_distortion_flag=True), device=dev)
+    reader = create_reader("euroc://" + paths["root"], cfg)
+    build.reset_launch_counts()
+    native.reset_counts()
+    pushed, gyro = [], {}
+    n_img, t_last = 0, None
+    node_push = node.slam.push_sensor_data
+
+    def push(kind, t, data):
+        pushed.append(kind)
+        node_push(kind, t, data)
+
+    node.slam.push_sensor_data = push
+    t0 = time.perf_counter()
+    with counting(klt, "track_keypoints") as pairs:
+        while (kind := reader.next()) != DataType.END:
+            if kind == DataType.GYROSCOPE:
+                t, w = reader.read_gyroscope()
+                gyro[t] = w
+            elif kind == DataType.ACCELEROMETER:
+                t, a = reader.read_accelerometer()
+                node.handle_imu(t, gyro.pop(t), a)
+                if n_img == n_frames and t > t_last and not node._pending_images:
+                    break
+            elif kind == DataType.DEPTH:  # a camera node: the depth stream is not its
+                reader.read_depth()
+            elif n_img < n_frames:
+                t, img = reader.read_image()
+                node.handle_image(t, img)
+                n_img, t_last = n_img + 1, t
+            else:
+                reader.read_image()
+    torch.cuda.synchronize()
+    res = {"frames": n_img, "pending": len(node._pending_images),
+           "engine_frames": sum(k == api.SensorType.CAMERA for k in pushed),
+           "remaps": native.CALLS["remap_bilinear"], "device": str(node.slam.device),
+           "seconds": time.perf_counter() - t0, "frame_pairs_tracked": pairs[0],
+           "launches": {k.name: k.launches for k in build.KERNELS}}
+    print(f"ROS node on {res['device']}: {n_img} images pushed, {res['engine_frames']} "
+          f"drained into the engine, {res['pending']} pending, {res['remaps']} native "
+          f"remaps, launches {res['launches']} ({res['seconds']:.1f} s)", flush=True)
+    if not (n_img == n_frames == res["engine_frames"] == res["remaps"]
+            and res["pending"] == 0):
+        fail(f"ROS node: {res}")
+    if res["device"] != str(torch.device(dev)) or res["launches"]["klt_level"] == 0:
+        fail(f"ROS node: the engine ran on {res['device']} with launches {res['launches']}")
+    return res
+
+
+def multiseq_phase(dev, out_dir: str, n_seq: int = MULTISEQ_N,
+                   frames: int = MULTISEQ_FRAMES, width: int = 752, height: int = 480,
+                   focal: float = 458.0, seeds=None) -> dict:
+    """`tools.multiseq` at the main path's geometry: `n_seq` sequences
+    (seeds 3, 5, 11, 32), `frames` frames each, sequential then batched
+    (the brokered `solve_chained_batch`, K2 over the batch). Fails unless
+    every sequence in both modes tracked at least half of its frames
+    after the backend's start at ATE <= 0.25 m, the batched mode made a
+    K2 call over more than one window, and the first batched flush's
+    windows, solved one by one, agree with their batched rows within
+    1e-9."""
+    import math
+
+    from xrslam_tpu_torch.tools import multiseq
+
+    res = multiseq.run(n_seq, frames, width, height, focal, dev, out_dir,
+                       check_first=True, seeds=seeds or multiseq.SEEDS)
+    seq, bat = res["sequential"], res["batched"]
+    for mode, r in (("sequential", seq), ("batched", bat)):
+        r["launches"] = {"klt_level": r["k1_launches"], "reproj_gram": r["k2_launches"]}
+        print(f"multiseq {mode} ({n_seq} sequences x {frames} frames, {width}x{height}): "
+              f"{r['frames']} frames in {r['wall_s']:.1f} s, {r['agg_fps']:.3f} frames/s "
+              f"in all; K2 {r['k2_launches']} calls ({r['k2_per_seq_frame']:.2f} a "
+              f"sequence-frame, batched {r['k2_batched']}), K1 {r['k1_launches']} "
+              f"({r['k1_per_seq_frame']:.2f}); per sequence (tracked after frame "
+              f"{multiseq.BACKEND_START} / of, ATE m): " + ", ".join(
+                  f"{o['tracked_after_start']}/{o['frames_after_start']} "
+                  f"{o['ate_m']:.4f}" for o in r["sequences"]), flush=True)
+    fc = bat["first_flush_check"]
+    print(f"multiseq: speedup {res['speedup']:.3f} (sequential wall / batched wall); "
+          f"{bat['batched_dispatches']} batched dispatches for "
+          f"{bat['solo_solves_replaced']} subframe solves; first batched flush against "
+          f"its windows solved one by one: {fc}; first frame where the modes part "
+          f"(> 1e-6 m or tracked): {res['first_divergence']}", flush=True)
+    for mode, r in (("sequential", seq), ("batched", bat)):
+        for i, o in enumerate(r["sequences"]):
+            need = math.ceil(o["frames_after_start"] / 2)
+            if o["tracked_after_start"] < need or not o["ate_m"] <= 0.25:
+                fail(f"multiseq {mode}, sequence {i} (seed {res['seeds'][i]}): "
+                     f"{o['tracked_after_start']} tracked after frame "
+                     f"{multiseq.BACKEND_START} (need {need}), ATE {o['ate_m']}")
+    if bat["k2_batched"]["launches"] == 0:
+        fail("multiseq batched: no K2 call served more than one window")
+    if fc is None or not fc["max_abs_err"] <= MULTISEQ_TOL:
+        fail(f"multiseq batched: first flush against single solves: {fc}")
+    res["diverged"] = [
+        {"sequence": i, "first_frame": res["first_divergence"][i]}
+        for i, (a, b) in enumerate(zip(seq["sequences"], bat["sequences"]))
+        if abs(a["tracked"] - b["tracked"]) > 2 or abs(a["ate_m"] - b["ate_m"]) > 0.01]
+    if res["diverged"]:
+        print(f"multiseq: the modes differ in outcome beyond rounding: {res['diverged']}",
+              flush=True)
     return res
 
 
@@ -1704,6 +2226,7 @@ def main(argv=None) -> None:
     k1 = klt_track_phase(dev)
     k2_gram = gram_phase(dev)
     k2 = factor_gram_phase(dev)
+    k2_batch = factor_gram_batch_phase(dev)
     repeat = parsac_repeat_phase(dev)
 
     from xrslam_tpu_torch.tools.make_dataset import render_sequence
@@ -1713,6 +2236,7 @@ def main(argv=None) -> None:
     print(f"rendered {N_FRAMES} frames 752x480 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     drive, main_slam = drive_phase(dev, seq)
+    nat = native_phase(drive)
     valid = validator_phase(main_slam.pipeline.swt)
     del main_slam
     parsac_drive = parsac_drive_phase(dev, seq)
@@ -1721,8 +2245,11 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         dataset = dataset_phase(dev, os.path.join(tmp, "euroc"))
         loc = localizer_phase(dev, dataset)
+        capi = capi_phase(dev, seq, dataset, tmp)
+        ros = ros_phase(dev, dataset)
         ckpt = checkpoint_phase(dev, seq, tmp)
         bench = bench_phase(dev, os.path.join(tmp, "bench"))
+        mseq = multiseq_phase(dev, os.path.join(tmp, "multiseq"))
 
     # one record per kernel, from its main-path entry (K1's and K2's
     # fused entries), with entry 1's numbers beside it
@@ -1746,7 +2273,11 @@ def main(argv=None) -> None:
                             "checkpoint_bearings": ckpt["bearings"]["launches"][k.name],
                             "checkpoint_parsac": ckpt["parsac"]["launches"][k.name],
                             "checkpoint_images": ckpt["image"]["launches"][k.name],
-                            "benchmark": bench["launches"][k.name]}})
+                            "benchmark": bench["launches"][k.name],
+                            "capi": capi["launches"][k.name],
+                            "ros_node": ros["launches"][k.name],
+                            "multiseq_sequential": mseq["sequential"]["launches"][k.name],
+                            "multiseq_batched": mseq["batched"]["launches"][k.name]}})
     kernels[0]["longest_chain"] = k1["longest_chain"]
     kernels[0]["latency_floor_us"] = k1["latency_floor_us"]
     kernels[0]["chain_ms"] = k1["chain_ms"]
@@ -1757,13 +2288,21 @@ def main(argv=None) -> None:
     kernels[1]["entry_reproj_gram"] = {
         key: e1[key] for key in ("max_abs_err", "ms", "plain_ms", "device_ms",
                                  "bound_ms", "bound_by")}
+    kernels[1]["entry_reproj_factor_gram_batched"] = {
+        key: k2_batch[key] for key in ("N", "K", "L", "max_abs_err", "ms", "plain_ms",
+                                       "device_ms", "four_single_ms",
+                                       "four_single_device_ms", "bound_ms", "bound_by")}
+    kernels[1]["entry_reproj_factor_gram_batched"]["launches_multiseq_batched"] = \
+        mseq["batched"]["k2_batched"]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "build": {k: v for k, v in info.items()},
                        "k1_klt_level": k1_level, "k1_klt_track": k1,
                        "k2_reproj_gram": k2_gram,
-                       "k2_reproj_factor_gram": k2, "drive": drive,
+                       "k2_reproj_factor_gram": k2,
+                       "k2_reproj_factor_gram_batched": k2_batch, "drive": drive,
+                       "native": nat, "capi": capi, "ros_node": ros, "multiseq": mseq,
                        "parsac_repeat": repeat, "parsac_drive": parsac_drive,
                        "visual_pnp_drive": pnp_drive, "object_drive": obj,
                        "dataset_drive": dataset, "localizer_drive": loc,

@@ -6,6 +6,9 @@
   per processed frame), the stage means and no card; a second run with
   another focal length renders into another directory (the cache is
   keyed on every parameter of the scene);
+- one timed pass and no warm-up (`--passes 1 --warmup 0`, what
+  `chip_smoke.py` runs after the main drive has warmed the process);
+  `--passes` not above `--warmup` is refused;
 - `tools/run_benchmark.py` over two tiny renders and one missing path:
   two sequence records, one `error` record, and the aggregate line last;
 - `tools/run_dataset.py --viz`: one overlay PNG per processed frame.
@@ -34,8 +37,8 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _bench(tmp_path, capsys, *extra):
-    out = bench_pipeline.main(["--frames", "8", "--passes", "2", "--device", "cpu",
+def _bench(tmp_path, capsys, *extra, passes: str = "2"):
+    out = bench_pipeline.main(["--frames", "8", "--passes", passes, "--device", "cpu",
                                "--dir", str(tmp_path), *extra])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert json.loads(line) == json.loads(json.dumps(out))
@@ -88,3 +91,13 @@ def test_run_dataset_viz_writes_overlays(tmp_path):
     assert len(pngs) == out["overlays"] == out["frames_processed"] == 6
     # nothing tracked in 6 frames, so no trajectory to plot
     assert out["frames_tracked"] == 0 and not (viz / "trajectory.png").exists()
+
+
+def test_bench_pipeline_one_timed_pass(tmp_path, capsys):
+    out = _bench(tmp_path, capsys, "--warmup", "0", passes="1")
+    assert out["warmup_passes"] == 0 and len(out["pass_frames_per_s"]) == 1
+    assert out["frames_per_s"] == out["pass_frames_per_s"][0] > 0
+    assert out["latency_ms"]["frames"] == 7
+    with pytest.raises(SystemExit):
+        bench_pipeline.main(["--frames", "8", "--passes", "1", "--device", "cpu",
+                             "--dir", str(tmp_path)])

@@ -16,11 +16,20 @@ replaced by their plain versions that count a launch as the kernel's
 wrappers do, and torch's sync debug mode (CUDA only) a no-op: every
 check of the two phases runs here, at the rehearsal's frame counts.
 
+The phases of the batched K2 entry, the native runtime, the C ABI and
+the ROS node run on the CPU the same way: the batched entry at K_sub=11,
+L=384, N=4 with the wrapper replaced by a counting plain version; the
+native phase on a 12-frame 320x240 main drive; the C ABI drive on 42
+frames at 320x240 through the shim loaded into this process (and the C
+round trip as a process of its own), the kernels' plain versions
+counting; the ROS node on 20 frames. `slow`: the multi-sequence phase at
+320x240, seeds 3 and 32, 44 frames.
+
 The validator phase runs on the window of the committed JAX checkpoint
 (`tests/data/jax_circle_ckpt30.npz`) restored on the CPU. `slow`: the
 checkpoint phase's runs (the bearing-fed bench scene with PARSAC, 34
 frames cut at 30; the 320x240 image run, 42 frames cut at 34) and the
-benchmark phase at 320x240 on 44 frames, each with the counting plain
+benchmark phase at 320x240 on 44 frames (one pass), each with the counting plain
 wrappers.
 """
 
@@ -126,7 +135,9 @@ def counting_plain_kernels(monkeypatch):
             img_ops.scharr = counted
 
     def k2(state, data):
-        build.REPROJ_GRAM.count("reproj_factor_gram_launch")
+        # one launch serves a batch (leading axis) of windows
+        build.REPROJ_GRAM.count("reproj_factor_gram_launch",
+                                windows=state.q.shape[0] if state.q.dim() == 3 else 1)
         return gram.reproj_factor_gram_plain(state, data)
 
     monkeypatch.setattr(klt, "track_keypoints", k1)
@@ -204,14 +215,93 @@ def test_checkpoint_phase_rehearsal(monkeypatch, tmp_path):
 
 @pytest.mark.slow
 def test_bench_phase_rehearsal(monkeypatch, tmp_path):
-    """`bench_phase` at 320x240 on 44 frames (2 passes) on the CPU: its
-    line parses, the kernels count as the main drive's."""
+    """`bench_phase` at 320x240 on 44 frames (one timed pass, no warm-up)
+    on the CPU: its line parses, the kernels count as the main drive's."""
     counting_plain_kernels(monkeypatch)
     res = chip_smoke.bench_phase(torch.device("cpu"), str(tmp_path), frames=44, width=320,
                                  height=240, focal=260.0, min_share=0.2)
     assert res["device"] == "cpu" and res["card"] is None
-    assert len(res["pass_frames_per_s"]) == 2
+    assert len(res["pass_frames_per_s"]) == 1 and res["warmup_passes"] == 0
     assert res["latency_ms"]["frames"] == 43 and res["latency_ms"]["p90"] >= \
         res["latency_ms"]["median"] > 0
-    # two passes of 43 processed frames: 42 frame pairs each
-    assert res["frame_pairs_tracked"] == 2 * 42 == res["launches"]["klt_level"]
+    # one pass of 43 processed frames: 42 frame pairs
+    assert res["frame_pairs_tracked"] == 42 == res["launches"]["klt_level"]
+
+
+def test_factor_gram_batch_phase_rehearsal(monkeypatch):
+    """The batched K2 phase at K_sub=11, L=384, N=4 with the wrapper
+    replaced by its plain version counting as the kernel does: its
+    agreement, row and N=1 checks, the one-launch count and the bound."""
+    def k2(state, data):
+        build.REPROJ_GRAM.count("reproj_factor_gram_launch",
+                                windows=state.q.shape[0] if state.q.dim() == 3 else 1)
+        return gram.reproj_factor_gram_plain(state, data)
+
+    monkeypatch.setattr(gram, "reproj_factor_gram_cuda", k2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=20, warmup=3: (fn(), 2.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, calls=20, reps=10: (fn(), 0.5)[1])
+    res = chip_smoke.factor_gram_batch_phase(torch.device("cpu"))
+    assert (res["N"], res["K"], res["L"]) == (4, 11, 384)
+    assert res["max_abs_err"] == 0.0
+    assert res["ms"] == res["four_single_ms"] == 2.0 and res["device_ms"] == 0.5
+    assert res["bound_by"] == "bytes" and res["bound_ms"] > 0
+    assert res["active_observations"] > 4 * 11 * 384 // 2
+
+
+def test_native_and_ros_phases_rehearsal(monkeypatch, tmp_path):
+    """The native phase on a 12-frame 320x240 main drive (plain kernels
+    counting), then the ROS node phase on 20 frames of a rendered
+    dataset, both on the CPU."""
+    from xrslam_tpu_torch import api
+    from xrslam_tpu_torch.tools.make_dataset import render_dataset, render_sequence
+
+    counting_plain_kernels(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    dev = torch.device("cpu")
+    seq = render_sequence(n_frames=12)
+    args = []
+    drive = chip_smoke.counted_drive(api.XRSLAM(config=seq["config"], device=dev), seq,
+                                     dev, poisson_args=args)
+    assert drive["native_calls"]["poisson_filter"] >= drive["frame_pairs_tracked"] == 11
+    res = chip_smoke.native_phase(dict(drive, poisson_args=args))
+    assert res["checked_calls"] == len(args) > 11 and res["build"]["library"]
+    assert set(res["tracker_split_ms"]) >= {"tracker_preprocess_time", "rest"}
+    # with depth images, as the dataset drive's: the node reads past them
+    paths = render_dataset(str(tmp_path / "euroc"), n_frames=24, n_landmarks=500, width=320,
+                           height=240, focal=260.0, seed=3, with_depth=True)
+    ros = chip_smoke.ros_phase(dev, {"paths": paths})
+    assert ros["engine_frames"] == ros["remaps"] == 20 and ros["pending"] == 0
+    assert ros["launches"]["klt_level"] == ros["frame_pairs_tracked"] == 19
+
+
+def test_capi_phase_rehearsal(monkeypatch, tmp_path):
+    """The C ABI phase at 320x240 on 42 frames on the CPU: the drive
+    through the shim in this process (the plain kernels counting, since
+    the shim runs this interpreter's modules), then the C round trip."""
+    from xrslam_tpu_torch import capi_host
+    from xrslam_tpu_torch.tools.make_dataset import render_dataset, render_sequence
+
+    counting_plain_kernels(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setenv(capi_host.DEVICE_ENV, "cpu")
+    dev = torch.device("cpu")
+    seq = render_sequence(n_frames=42)
+    paths = render_dataset(str(tmp_path / "euroc"), n_frames=2, n_landmarks=500, width=320,
+                           height=240, focal=260.0, seed=3)
+    res = chip_smoke.capi_phase(dev, seq, {"paths": paths}, str(tmp_path), n_frames=42)
+    assert res["device"] == "cpu" and res["frames_tracked"] >= 10
+    # the 42nd frame waits for its IMU when the drive stops at it
+    assert res["launches"]["klt_level"] == res["frame_pairs_tracked"] == 40
+    assert res["standalone"]["linked"] and "CAPI_OK" in res["standalone"]["lines"]
+    assert capi_host._engine is None
+
+
+@pytest.mark.slow
+def test_multiseq_phase_rehearsal(monkeypatch, tmp_path):
+    counting_plain_kernels(monkeypatch)
+    res = chip_smoke.multiseq_phase(torch.device("cpu"), str(tmp_path), n_seq=2, frames=44,
+                                    width=320, height=240, focal=260.0, seeds=(3, 32))
+    assert res["batched"]["k2_batched"]["launches"] > 0
+    assert res["batched"]["launches"]["reproj_gram"] < res["sequential"]["launches"][
+        "reproj_gram"]

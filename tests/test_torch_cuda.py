@@ -7,6 +7,11 @@ a machine with a CUDA device and no JAX:
 (`tests/conftest.py` imports jax, hence `--noconftest` there). Every
 test skips without a CUDA device.
 
+K2's fused entry also takes a batch of windows (a leading axis): one
+call against the plain version, each row bit-equal to a single-window
+call, the N=1 batch bit-equal to the single-window call; and the batched
+chained solve against single solves within 1e-9.
+
 Tolerances, both from summation order alone: K1 (float32, both
 entries) status equal on >= 99% of slots and positions within 1e-3 px
 on the slots live on both sides; K2 rtol = atol = 1e-9 in float64 and 1e-4 in float32. The
@@ -344,6 +349,89 @@ def test_reproj_factor_gram_matches_plain(dev, K, L, dt, tol):
             torch.testing.assert_close(b, a, rtol=tol, atol=tol, msg=n)
     for a, b in zip(out, gram.reproj_factor_gram(state, data)):
         assert torch.equal(a, b), "two launches differ"
+
+
+def _stack(trees):
+    from xrslam_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda *x: torch.stack(x), *trees)
+
+
+@pytest.mark.parametrize("K,L,N", [(11, 384, 4), (12, 384, 3), (5, 7, 2), (4, 0, 2),
+                                   (32, 256, 2)],
+                         ids=["subframe", "path", "small", "no_landmarks", "k32"])
+@pytest.mark.parametrize("dt,tol", DTYPES, ids=["f64", "f32"])
+def test_reproj_factor_gram_batch(dev, K, L, N, dt, tol):
+    """The fused entry on a batch of N windows: one call (2 launches)
+    against the plain version, every row bit-equal to a single-window
+    call on it, and the N=1 batch bit-equal to the single-window call."""
+    pairs = [reproj_window(K, L, seed=100 * i + K, dtype=dt, device=dev)
+             for i in range(N)]
+    state, data = _stack([p[0] for p in pairs]), _stack([p[1] for p in pairs])
+    before = (build.REPROJ_GRAM.launches, dict(build.REPROJ_GRAM.batched))
+    out = gram.reproj_factor_gram(state, data)
+    torch.cuda.synchronize()
+    assert build.REPROJ_GRAM.launches == before[0] + 1
+    assert build.REPROJ_GRAM.batched["windows"] == before[1]["windows"] + N
+    for n, a, b in zip(NAMES + ["cost"], gram.reproj_factor_gram_plain(state, data), out):
+        assert b.shape == a.shape == (N,) + a.shape[1:], n
+        if dt == torch.float64:
+            torch.testing.assert_close(b, a, rtol=tol, atol=tol, msg=n)
+    for i, (s1, d1) in enumerate(pairs):
+        for n, a, b in zip(NAMES + ["cost"], gram.reproj_factor_gram(s1, d1), out):
+            assert torch.equal(a, b[i]), f"row {i} {n}"
+    one = gram.reproj_factor_gram(*[_stack([x]) for x in pairs[0]])
+    for n, a, b in zip(NAMES + ["cost"], gram.reproj_factor_gram(*pairs[0]), one):
+        assert b.shape == (1,) + a.shape and torch.equal(a, b[0]), n
+
+
+def test_reproj_factor_gram_batch_graph_capture(dev):
+    """The batched call allocates and synchronises nothing in its C call:
+    it captures into a CUDA graph, and the replay gives the eager result."""
+    state, data = _stack([reproj_window(11, 384, seed=s, device=dev)[0] for s in (1, 2)]), \
+        _stack([reproj_window(11, 384, seed=s, device=dev)[1] for s in (1, 2)])
+    ref = gram.reproj_factor_gram(state, data)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = gram.reproj_factor_gram(state, data)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(ref, out):
+        assert torch.equal(a, b)
+
+
+def test_solve_chained_batch_on_the_card(dev):
+    """`solver.solve_chained_batch` on the card (K2 over the batch)
+    against single `solve_chained` calls, within 1e-9 (f64)."""
+    from xrslam_tpu_torch.estimation import solver
+    from xrslam_tpu_torch.estimation.solver import SolveOptions
+    from xrslam_tpu_torch.estimation.window import WindowData
+
+    wins = []
+    for s in (1, 2, 3):
+        st, d = reproj_window(6, 64, seed=s, device=dev)
+        fix = torch.ones(6, dtype=torch.bool, device=dev)
+        fix[5] = False
+        d1 = d._replace(fix_pose=fix, fix_motion=fix,
+                        fix_landmark=torch.ones_like(d.fix_landmark),
+                        frame_mask=torch.ones(6, dtype=torch.bool, device=dev))
+        d2 = d1._replace(fix_pose=torch.arange(6, device=dev) == 0,
+                         fix_motion=torch.arange(6, device=dev) == 0,
+                         fix_landmark=torch.zeros_like(d.fix_landmark))
+        assert isinstance(d2, WindowData)
+        wins.append((st, d1, d2))
+    o1, o2 = SolveOptions(iterations=3, use_preint=False), \
+        SolveOptions(iterations=4, use_preint=False)
+    before = dict(build.REPROJ_GRAM.batched)
+    out = solver.solve_chained_batch([w[0] for w in wins], [w[1] for w in wins], o1,
+                                     [w[0] for w in wins], [w[2] for w in wins], o2,
+                                     [5, 5, 5])
+    assert build.REPROJ_GRAM.batched["launches"] > before["launches"]
+    for (st, d1, d2), got in zip(wins, out):
+        _, ref, _ = solver.solve_chained(st, d1, o1, st, d2, o2, 5, 5)
+        for n, a, b in zip(ref._fields, ref, got):
+            torch.testing.assert_close(b, a, rtol=0, atol=1e-9, msg=n)
 
 
 def test_reproj_factor_gram_inverse_depth_guard(dev):

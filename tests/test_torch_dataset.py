@@ -1,10 +1,11 @@
 """The port's dataset layer held to the JAX package and to Pillow:
 
-- `io.dataset.load_gray` gives the JAX package's `load_gray` through
-  its Pillow path exactly (the port decodes with Pillow; the JAX
-  package's native decoder, which the port may not reach, converts
-  colour to gray in float and is switched off here), and Pillow's
-  grayscale scaled to [0,1]: Pillow-written 8-bit gray, RGB, RGBA and 16-bit gray
+- `io.dataset.load_gray` (a PNG through the port's build of the native
+  decoder, `native/xr_host.cpp`) gives the JAX package's `load_gray`
+  (the same C source) exactly, and `io.dataset.load_gray_pillow` gives
+  the JAX package's Pillow path (its native decoder switched off; it
+  converts colour to gray in float, Pillow in integers) and Pillow's
+  grayscale scaled to [0,1] exactly: Pillow-written 8-bit gray, RGB, RGBA and 16-bit gray
   PNGs, and files whose rows carry each of the five filter types (all
   rows one type, a seeded per-row mix, and runs of several types),
   written by this test's own filter encoder since Pillow chooses its
@@ -109,8 +110,11 @@ def _filtered_png(px: np.ndarray, fts, bpp: int, depth: int, ctype: int) -> byte
 def _check_load_gray(monkeypatch, path):
     from xrslam_tpu import native
 
-    monkeypatch.setattr(native, "png_load_gray", lambda p: None)
     out = tdataset.load_gray(str(path))
+    ref = jdataset.load_gray(str(path))
+    assert out.dtype == ref.dtype == np.float32 and np.array_equal(out, ref)
+    monkeypatch.setattr(native, "png_load_gray", lambda p: None)
+    out = tdataset.load_gray_pillow(str(path))
     ref = jdataset.load_gray(str(path))
     assert out.dtype == ref.dtype == np.float32 and np.array_equal(out, ref)
     assert np.array_equal(out, _pillow_gray01(path))

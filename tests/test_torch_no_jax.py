@@ -72,3 +72,33 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "OK" in proc.stdout
+
+
+def test_host_runtime_capi_and_batch_entry_points_with_jax_blocked():
+    """The native host runtime, the C ABI host module, the ROS node, the
+    multi-sequence driver, `solve_chained_batch` and the split subframe
+    step import and exist with jax and the JAX package blocked; the C
+    ABI shim's source drives the port's host module only."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        from xrslam_tpu_torch import capi_host, native
+        from xrslam_tpu_torch.core.sliding_window import SlidingWindowTracker
+        from xrslam_tpu_torch.estimation import solver
+        from xrslam_tpu_torch.tools import multiseq, ros_node
+        assert callable(solver.solve_chained_batch)
+        assert callable(SlidingWindowTracker.prepare_fused_subframe)
+        assert callable(SlidingWindowTracker.finish_fused_subframe)
+        assert callable(multiseq.ChainedSolveBroker) and callable(ros_node.RosVioNode)
+        assert callable(capi_host.create) and native.available()
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "OK" in proc.stdout
+    src = open(os.path.join(PKG, "native", "xr_capi.cpp")).read()
+    assert 'PyImport_ImportModule("xrslam_tpu_torch.capi_host")' in src
+    assert "xrslam_tpu." not in src

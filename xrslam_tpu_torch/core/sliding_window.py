@@ -14,7 +14,10 @@
     manage_keyframe, track_landmark (`triangulate_track`),
     refine_window (full-window VI-BA + landmark gates, write-back),
     marginalization
-    subframe:  localize + subwindow refine (solve_chained), write-back
+    subframe:  localize + subwindow refine (solve_chained), write-back;
+               with a `solve_broker`, prepare_fused_subframe /
+               finish_fused_subframe around one batched solve of N
+               sequences (tools/multiseq.py)
 
 Every write-back is applied immediately (the port has no deferred
 write-back pipeline). The PARSAC stage reads the device at most twice a
@@ -91,6 +94,9 @@ class SlidingWindowTracker:
         self.K_sub = 1 + max(self.ROT_MERGE_TRIGGER,
                              config.sliding_window_subframe_size) + 1
         self.marg: Optional[MargPrior] = None
+        # multi-sequence mode: collects the fused subframe solves
+        # (tools/multiseq.ChainedSolveBroker); None solves each at once
+        self.solve_broker = None
         self._pred_frame: Optional[FrameRec] = None
         self._last_window = None
         # PARSAC state: the two bin-confidence vectors live on the device
@@ -335,11 +341,13 @@ class SlidingWindowTracker:
                    if meta_eff.landmark_mask[l]}
         self._revalidate_landmarks(frames, skip_ids=covered)
 
-    def _fused_subframe_step(self, target: FrameRec) -> None:
-        """Localize + subwindow refine over the subwindow tensors: the
-        localize stage is the subwindow system with every frame but the
-        target fixed, every landmark fixed and preintegration only
-        prev→target."""
+    def prepare_fused_subframe(self, target: FrameRec) -> dict:
+        """Host half of the fused subframe step: subwindow extraction and
+        the localize stage's masking. Returns the ctx dict of the
+        solve_chained operands (l_state, l_data, l_opts, s_state, s_data,
+        s_opts, s2) and what finish_fused_subframe needs. Public so that
+        the multi-sequence driver (tools/multiseq.py) can solve N
+        sequences' steps in one `solve_chained_batch`."""
         prep = self._prepare_subwindow()
         s_state, s_data, s_meta, s_opts, variant, kf, saved = prep
         frames = s_meta.frames
@@ -362,10 +370,31 @@ class SlidingWindowTracker:
             l_data = l_data._replace(landmark_mask=s_data.landmark_mask)
         l_state = self._apply_pred(s_state, frames, s_data)
         l_opts = SolveOptions(iterations=self.config.solver_iteration_limit)
-        _, st2, _ = solve_chained(l_state, l_data, l_opts, s_state, s_data,
-                                  s_opts, s2, s2)
-        kf.fix_pose, kf.fix_motion = saved
-        write_back(self.map, st2, s_meta, write_landmarks=False)
+        return dict(l_state=l_state, l_data=l_data, l_opts=l_opts,
+                    s_state=s_state, s_data=s_data, s_opts=s_opts, s2=s2,
+                    variant=variant, kf=kf, saved=saved, meta=s_meta)
+
+    def finish_fused_subframe(self, ctx: dict, st2) -> None:
+        """Apply a fused subframe solve's result: restore the keyframe's
+        fix flags, write the subwindow back."""
+        ctx["kf"].fix_pose, ctx["kf"].fix_motion = ctx["saved"]
+        write_back(self.map, st2, ctx["meta"], write_landmarks=False)
+
+    def _fused_subframe_step(self, target: FrameRec) -> None:
+        """Localize + subwindow refine over the subwindow tensors: the
+        localize stage is the subwindow system with every frame but the
+        target fixed, every landmark fixed and preintegration only
+        prev→target. With a `solve_broker` (tools/multiseq.py) the step
+        hands its solve to the broker, which solves every lockstepped
+        sequence's step at once and finishes each."""
+        ctx = self.prepare_fused_subframe(target)
+        if self.solve_broker is not None:
+            self.solve_broker.submit(self, ctx)
+            return
+        _, st2, _ = solve_chained(ctx["l_state"], ctx["l_data"], ctx["l_opts"],
+                                  ctx["s_state"], ctx["s_data"], ctx["s_opts"],
+                                  ctx["s2"], ctx["s2"])
+        self.finish_fused_subframe(ctx, st2)
 
     # ------------------------------------------------------------------
     def _prepare_localize(self):

@@ -65,6 +65,14 @@
 //  - Every output element is written by a kernel (no zero fill), a call is 2
 //    launches (3 for the first entry), and nothing is allocated or
 //    synchronised here.
+//  - The fused entry takes a batch of N windows of one shape (the port's
+//    counterpart of jax.vmap over the Pallas kernel, for the multi-sequence
+//    solve, estimation/solver.py:solve_chained_batch): window b's inputs,
+//    partials and outputs sit at b times each array's per-window size, and
+//    both launches gain a grid dimension over b. A block reads and writes
+//    only its own window, in the same order as a single call, so row b of a
+//    batch is bit-equal to a call on window b alone, and N = 1 is the
+//    single-window call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -127,6 +135,28 @@ struct GramOut {
   T* Hfl6;
   T* bl;
 };
+
+// Window b of a batch: every per-window array advanced by b windows.
+template <typename T>
+__device__ __forceinline__ void batch_row(FactorIn<T>& fi, GramOut<T>& out,
+                                          int b, int K, int L, int S) {
+  const size_t k = static_cast<size_t>(b) * K, l = static_cast<size_t>(b) * L;
+  const size_t kl = k * L, ks = k * S;
+  fi.q += 4 * k;
+  fi.p += 3 * k;
+  fi.inv_depth += l;
+  fi.q_bc += 4 * k;
+  fi.p_bc += 3 * k;
+  fi.bearings += 3 * kl;
+  fi.obs_mask += kl;
+  fi.w2 += 4 * k;
+  out.colpart += ks * 63 * K;
+  out.anchorpart += ks * 27;
+  out.costpart += ks;
+  out.Hll += l;
+  out.Hfl6 += 6 * kl;
+  out.bl += l;
+}
 
 template <typename T> struct Pair;
 template <> struct Pair<double> { using type = double2; };
@@ -406,6 +436,11 @@ gram_main_kernel(GramIn<T> gi, FactorIn<T> fi,
   T* acc_all = reinterpret_cast<T*>(smem_raw);  // [kWarps][kAcc][K]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int S = gridDim.x, s = blockIdx.x, a = blockIdx.y;
+  if constexpr (kFused) {  // window blockIdx.z of a batch
+    batch_row(fi, out, blockIdx.z, K, L, S);
+    ref_idx += static_cast<size_t>(blockIdx.z) * L;
+    lm_mask += static_cast<size_t>(blockIdx.z) * L;
+  }
   T* acc = acc_all + warp * kAcc * K;
   for (int e = lane; e < kAcc * K; e += 32) acc[e] = T(0);
   __syncwarp();
@@ -509,6 +544,15 @@ gram_reduce_kernel(const T* __restrict__ colpart,
   const int n_out = NP + N6 + (costpart != nullptr ? 1 : 0);
   if (o >= n_out) return;  // the whole warp
   const size_t cstride = static_cast<size_t>(kCol) * K;
+  const size_t b = blockIdx.y;  // window b of a batch
+  colpart += b * KS * cstride;
+  anchorpart += b * KS * kAnchor;
+  if (costpart != nullptr) {
+    costpart += b * KS;
+    cost += b;
+  }
+  P += b * NP;
+  b6 += b * N6;
   T v = T(0);
   if (o < NP) {
     int row = o / N6, colm = o - (o / N6) * N6;
@@ -585,7 +629,7 @@ template <typename T, bool kFused>
 cudaError_t launch_stages(const GramIn<T>& gi, const FactorIn<T>& fi,
                           const int* ref_idx, const uint8_t* lm_mask,
                           const GramOut<T>& out, T* P, T* b6, T* cost, int K,
-                          int L, int S, cudaStream_t stream) {
+                          int L, int S, int N, cudaStream_t stream) {
   const int chunk = (L + S - 1) / S;
   const size_t smem =
       sizeof(T) * static_cast<size_t>(kWarps) * (kAcc + (kFused ? 0 : 24)) * K;
@@ -595,12 +639,13 @@ cudaError_t launch_stages(const GramIn<T>& gi, const FactorIn<T>& fi,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  gram_main_kernel<T, kFused><<<dim3(S, K), kThreads, smem, stream>>>(
+  gram_main_kernel<T, kFused><<<dim3(S, K, N), kThreads, smem, stream>>>(
       gi, fi, ref_idx, lm_mask, out, K, L, chunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int n_out = 36 * K * K + 6 * K + (kFused ? 1 : 0);
-  gram_reduce_kernel<T><<<(n_out + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+  gram_reduce_kernel<T><<<dim3((n_out + kWarps - 1) / kWarps, N), kThreads, 0,
+                          stream>>>(
       out.colpart, out.anchorpart, kFused ? out.costpart : nullptr, P, b6,
       cost, K, S);
   return cudaGetLastError();
@@ -627,7 +672,7 @@ int launch_gram(const void* r, const void* Jt, const void* Jr6, const void* Jd,
   return static_cast<int>(launch_stages<T, false>(
       gi, FactorIn<T>{}, static_cast<const int*>(ref_idx),
       static_cast<const uint8_t*>(lm_mask), out, static_cast<T*>(P),
-      static_cast<T*>(b6), nullptr, K, L, S, stream));
+      static_cast<T*>(b6), nullptr, K, L, S, 1, stream));
 }
 
 template <typename T>
@@ -638,7 +683,7 @@ int launch_factor_gram(const void* q, const void* p, const void* inv_depth,
                        const void* lm_mask, void* colpart, void* anchorpart,
                        void* costpart, void* P, void* b6, void* Hll,
                        void* Hfl6, void* bl, void* cost, int K, int L, int S,
-                       cudaStream_t stream) {
+                       int N, cudaStream_t stream) {
   const FactorIn<T> fi = {
       static_cast<const T*>(q),        static_cast<const T*>(p),
       static_cast<const T*>(inv_depth), static_cast<const T*>(q_bc),
@@ -651,7 +696,7 @@ int launch_factor_gram(const void* q, const void* p, const void* inv_depth,
   return static_cast<int>(launch_stages<T, true>(
       GramIn<T>{}, fi, static_cast<const int*>(ref_idx),
       static_cast<const uint8_t*>(lm_mask), out, static_cast<T*>(P),
-      static_cast<T*>(b6), static_cast<T*>(cost), K, L, S, stream));
+      static_cast<T*>(b6), static_cast<T*>(cost), K, L, S, N, stream));
 }
 
 }  // namespace
@@ -659,7 +704,8 @@ int launch_factor_gram(const void* q, const void* p, const void* inv_depth,
 // Both entries: K <= 32 frames, S CTAs per anchor frame (the caller sized
 // colpart (K*S,63,K), anchorpart (K*S,27) and costpart (K*S,) for it), every
 // array contiguous and 16-byte aligned. ref_idx is int32, the masks one byte
-// per element.
+// per element. The fused entry takes N >= 1 windows of the same K and L,
+// each array holding them one after another (a leading axis of N).
 extern "C" int reproj_gram_launch(const void* r, const void* Jt,
                                   const void* Jr6, const void* Jd,
                                   const void* R1, void* ref_idx,
@@ -680,16 +726,16 @@ extern "C" int reproj_factor_gram_launch(
     const void* p_bc, const void* bearings, const void* obs_mask,
     const void* ref_idx, const void* w2, const void* lm_mask, void* colpart,
     void* anchorpart, void* costpart, void* P, void* b6, void* Hll,
-    void* Hfl6, void* bl, void* cost, int K, int L, int S, int is_double,
-    void* stream) {
+    void* Hfl6, void* bl, void* cost, int K, int L, int S, int N,
+    int is_double, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_double)
     return launch_factor_gram<double>(q, p, inv_depth, q_bc, p_bc, bearings,
                                       obs_mask, ref_idx, w2, lm_mask, colpart,
                                       anchorpart, costpart, P, b6, Hll, Hfl6,
-                                      bl, cost, K, L, S, st);
+                                      bl, cost, K, L, S, N, st);
   return launch_factor_gram<float>(q, p, inv_depth, q_bc, p_bc, bearings,
                                    obs_mask, ref_idx, w2, lm_mask, colpart,
                                    anchorpart, costpart, P, b6, Hll, Hfl6, bl,
-                                   cost, K, L, S, st);
+                                   cost, K, L, S, N, st);
 }

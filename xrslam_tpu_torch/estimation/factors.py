@@ -275,7 +275,7 @@ def marg_residual_jac(state: WindowState, data: WindowData):
     U = data.marg.sqrt_inv_cov
     r = U @ e.reshape(-1) + data.marg.infovec
     Jr_inv = lie.right_jacobian_inv(e[:, 0:3])
-    Dk = torch.zeros((K, ES_SIZE, ES_SIZE), dtype=U.dtype, device=U.device)
+    Dk = U.new_zeros((K, ES_SIZE, ES_SIZE))  # batched under vmap, as U
     Dk[:, 0:3, 0:3] = Jr_inv
     Dk[:, 3:, 3:] = torch.eye(ES_SIZE - 3, dtype=U.dtype, device=U.device)
     D = torch.block_diag(*Dk)

@@ -10,7 +10,11 @@ entries that share one CUDA source (csrc/reproj_gram.cu).
    what `solver.assemble` calls: the residuals, their Jacobians in
    closed form, the active mask, the Cauchy weights and robust cost and
    the Gram block in one call; on the card nothing between the window
-   and the outputs reaches device memory.
+   and the outputs reaches device memory. It also takes a batch of N
+   windows of one shape (every state and data field with a leading
+   axis of N, as `solver.solve_chained_batch` stacks them) and returns
+   every output with that leading axis, in the same two launches: the
+   port's counterpart of `jax.vmap` over the Pallas kernel.
 
 Each entry has a plain version (`reproj_gram_plain`: the einsum branch
 of the JAX `solver.assemble`, solver.py:119-136;
@@ -28,6 +32,7 @@ import torch
 from . import factors
 from .window import WindowData, WindowState
 from ..kernels import build as kbuild
+from ..utils.tree import tree_map
 
 MAX_FRAMES = 32   # one lane per frame (csrc/reproj_gram.cu)
 TARGET_CTAS = 132  # the H100's SMs: splits * K CTAs, one for nearly each
@@ -67,7 +72,13 @@ def reproj_factor_gram_plain(state: WindowState, data: WindowData,
     """Entry 2 in plain PyTorch: closed-form factors, Cauchy weights,
     the einsum Gram block. Returns (P, b6, Hll, Hfl6, bl, cost).
     `jac=factors.reproj_residual_jac` gives the autodiff composition
-    that the closed form and the kernel are held against."""
+    that the closed form and the kernel are held against. A batch
+    (leading axis N) is the N single-window results stacked."""
+    if state.q.dim() == 3:
+        rows = [reproj_factor_gram_plain(tree_map(lambda x, i=i: x[i], state),
+                                         tree_map(lambda x, i=i: x[i], data), jac)
+                for i in range(state.q.shape[0])]
+        return tuple(torch.stack(outs) for outs in zip(*rows))
     r, Jt, Jr6, Jd, m = jac(state, data)
     w, c = factors.cauchy_weights(r, m)
     wf = w[..., None]
@@ -140,11 +151,13 @@ def _check_frames(K: int, dtype, device) -> None:
                          f"device, got {device}")
 
 
-def _carve(K: int, L: int, S: int, dtype, device, with_cost: bool):
-    """One allocation for every output and the CTA partials."""
-    shapes = [(K, 6, K, 6), (K, 6), (L,), (K, 6, L), (L,), (),
-              (K * S, COL_ROWS, K), (K * S, ANCHOR_ROWS),
-              (K * S if with_cost else 0,)]
+def _carve(K: int, L: int, S: int, dtype, device, with_cost: bool,
+           batch: tuple = ()):
+    """One allocation for every output and the CTA partials; `batch` is
+    () or (N,), the leading axis of every array."""
+    shapes = [batch + s for s in (
+        (K, 6, K, 6), (K, 6), (L,), (K, 6, L), (L,), (),
+        (K * S, COL_ROWS, K), (K * S, ANCHOR_ROWS), (K * S if with_cost else 0,))]
     sizes = [int(torch.Size(s).numel()) for s in shapes]
     buf = torch.empty((sum(sizes),), dtype=dtype, device=device)
     return [v.view(s) for v, s in zip(torch.split(buf, sizes), shapes)]
@@ -181,38 +194,43 @@ def reproj_gram_cuda(r, Jt, Jr6, Jd, R1):
 
 def reproj_factor_gram_cuda(state: WindowState, data: WindowData):
     """Entry 2 on the card: two launches (CTA partials with the factor
-    stage in registers, their ordered sum)."""
-    if state.q.dim() != 2 or data.bearings.dim() != 3:
-        raise ValueError("reproj_factor_gram takes one window: q (K,4), "
-                         "bearings (K,L,3)")
-    K, L = data.bearings.shape[:2]
+    stage in registers, their ordered sum), for one window or a batch
+    of N (a leading axis on every field; the outputs take it too)."""
+    if state.q.dim() not in (2, 3) or data.bearings.dim() != state.q.dim() + 1:
+        raise ValueError("reproj_factor_gram takes one window (q (K,4), bearings "
+                         "(K,L,3)) or a batch (q (N,K,4), bearings (N,K,L,3))")
+    batch = tuple(state.q.shape[:-2])
+    N = batch[0] if batch else 1
+    K, L = data.bearings.shape[-3:-1]
     dt, dev = state.p.dtype, state.p.device
     _check_frames(K, dt, dev)
-    q = _check("state.q", state.q, (K, 4), dt, dev)
-    p = _check("state.p", state.p, (K, 3), dt, dev)
-    invd = _check("state.inv_depth", state.inv_depth, (L,), dt, dev)
-    q_bc = _check("data.q_bc", data.q_bc, (K, 4), dt, dev)
-    p_bc = _check("data.p_bc", data.p_bc, (K, 3), dt, dev)
-    bearings = _check("data.bearings", data.bearings, (K, L, 3), dt, dev)
-    w2 = _check("data.sqrt_inv_cov2", data.sqrt_inv_cov2, (K, 2, 2), dt, dev)
-    obs_mask = _check("data.obs_mask", data.obs_mask, (K, L), torch.bool, dev)
-    lm_mask = _check("data.landmark_mask", data.landmark_mask, (L,),
+    if N < 1:
+        raise ValueError(f"reproj_factor_gram takes a batch of N >= 1, got {N}")
+    q = _check("state.q", state.q, batch + (K, 4), dt, dev)
+    p = _check("state.p", state.p, batch + (K, 3), dt, dev)
+    invd = _check("state.inv_depth", state.inv_depth, batch + (L,), dt, dev)
+    q_bc = _check("data.q_bc", data.q_bc, batch + (K, 4), dt, dev)
+    p_bc = _check("data.p_bc", data.p_bc, batch + (K, 3), dt, dev)
+    bearings = _check("data.bearings", data.bearings, batch + (K, L, 3), dt, dev)
+    w2 = _check("data.sqrt_inv_cov2", data.sqrt_inv_cov2, batch + (K, 2, 2), dt, dev)
+    obs_mask = _check("data.obs_mask", data.obs_mask, batch + (K, L), torch.bool, dev)
+    lm_mask = _check("data.landmark_mask", data.landmark_mask, batch + (L,),
                      torch.bool, dev)
-    ref_idx = _check("data.ref_idx", data.ref_idx, (L,), torch.int32, dev)
+    ref_idx = _check("data.ref_idx", data.ref_idx, batch + (L,), torch.int32, dev)
     S, _ = grid(K, L)
     (P, b6, Hll, Hfl6, bl, cost, colpart, anchorpart,
-     costpart) = _carve(K, L, S, dt, dev, True)
+     costpart) = _carve(K, L, S, dt, dev, True, batch)
     err = kbuild.REPROJ_GRAM.fn(ENTRY_FACTOR)(
         q.data_ptr(), p.data_ptr(), invd.data_ptr(), q_bc.data_ptr(),
         p_bc.data_ptr(), bearings.data_ptr(), obs_mask.data_ptr(),
         ref_idx.data_ptr(), w2.data_ptr(), lm_mask.data_ptr(),
         colpart.data_ptr(), anchorpart.data_ptr(), costpart.data_ptr(),
         P.data_ptr(), b6.data_ptr(), Hll.data_ptr(), Hfl6.data_ptr(),
-        bl.data_ptr(), cost.data_ptr(), K, L, S,
+        bl.data_ptr(), cost.data_ptr(), K, L, S, N,
         1 if dt == torch.float64 else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(err, "reproj_factor_gram")
-    kbuild.REPROJ_GRAM.count(ENTRY_FACTOR)
+    kbuild.REPROJ_GRAM.count(ENTRY_FACTOR, windows=N)
     return P, b6, Hll, Hfl6, bl, cost
 
 
@@ -232,8 +250,8 @@ def reproj_gram(r, Jt, Jr6, Jd, R1):
 
 
 def reproj_factor_gram(state: WindowState, data: WindowData):
-    """K2, entry 2: plain PyTorch for CPU tensors, the CUDA kernel for
-    CUDA tensors."""
+    """K2, entry 2 (one window, or a batch with a leading axis): plain
+    PyTorch for CPU tensors, the CUDA kernel for CUDA tensors."""
     fn = _dispatch(state.p, "reproj_factor_gram", reproj_factor_gram_cuda,
                    reproj_factor_gram_plain)
     return fn(state, data)

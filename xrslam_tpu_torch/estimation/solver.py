@@ -8,13 +8,21 @@ equations in one call of kernel K2 (gram.reproj_factor_gram), scalar
 Schur elimination of the inverse depths, a Jacobi-scaled Cholesky solve
 of the reduced camera system, and LM's accept/reject — kept on the
 device with `torch.where`, so an iteration needs no host sync.
+
+`solve_chained_batch` runs N windows' chained solves as one program on
+a leading batch axis (the JAX package's `jax.vmap`): K2 takes the batch
+in one call, the rest of `assemble` and the step run under
+`torch.func.vmap`, and LM's accept/reject, λ and the slot injection are
+per row.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence, Tuple
 
 import torch
+from torch.func import vmap
 
 from . import factors, gram
 from .window import ES_SIZE, WindowData, WindowState, retract
@@ -60,8 +68,10 @@ def _preint_blocks(H, b, rp, Ji, Jj, K):
     return H, b
 
 
-def assemble(state: WindowState, data: WindowData, opts: SolveOptions):
-    """Build the GN normal equations.
+def assemble(state: WindowState, data: WindowData, opts: SolveOptions,
+             reproj=None):
+    """Build the GN normal equations. `reproj` is K2's result for this
+    window when the caller computed it (`assemble_batch`).
 
     Returns (H (K,15,K,15), b (K,15), Hll (L,), Hfl (K,15,L), bl (L,),
     cost ()) with fixed/masked entries eliminated (zero rows/cols, unit
@@ -69,17 +79,19 @@ def assemble(state: WindowState, data: WindowData, opts: SolveOptions):
     """
     K = state.q.shape[0]
     L = state.inv_depth.shape[0]
+    # new_zeros: under vmap (assemble_batch) the accumulators are batched
+    zeros = state.p.new_zeros
+    H = zeros((K, ES_SIZE, K, ES_SIZE))
+    b = zeros((K, ES_SIZE))
+    Hll = zeros((L,))
+    Hfl = zeros((K, ES_SIZE, L))
+    bl = zeros((L,))
+    cost = zeros(())
     dt = state.p.dtype
-    dev = state.p.device
-    H = torch.zeros((K, ES_SIZE, K, ES_SIZE), dtype=dt, device=dev)
-    b = torch.zeros((K, ES_SIZE), dtype=dt, device=dev)
-    Hll = torch.zeros((L,), dtype=dt, device=dev)
-    Hfl = torch.zeros((K, ES_SIZE, L), dtype=dt, device=dev)
-    bl = torch.zeros((L,), dtype=dt, device=dev)
-    cost = torch.zeros((), dtype=dt, device=dev)
 
     if opts.use_reproj:
-        P, b6, Hll_c, Hfl6, bl_c, c = gram.reproj_factor_gram(state, data)
+        P, b6, Hll_c, Hfl6, bl_c, c = (gram.reproj_factor_gram(state, data)
+                                       if reproj is None else reproj)
         cost = cost + c
         H[:, 0:6, :, 0:6] += P
         b[:, 0:6] += b6
@@ -93,8 +105,10 @@ def assemble(state: WindowState, data: WindowData, opts: SolveOptions):
         cost = cost + torch.sum(c)
         r = r * w[..., None]
         Jq = Jq * w[..., None, None]
-        ar = torch.arange(K, device=dev)
-        H[ar, 0:3, ar, 0:3] += torch.einsum("klri,klrj->kij", Jq, Jq)
+        # H[k, 0:3, k, 0:3] += ..., through a diagonal view (vmap's
+        # index_put rule mis-places this indexing pattern)
+        torch.diagonal(H[:, 0:3, :, 0:3], dim1=0, dim2=2).add_(
+            torch.einsum("klri,klrj->kij", Jq, Jq).permute(1, 2, 0))
         b[:, 0:3] += torch.einsum("klri,klr->ki", Jq, r)
 
     if opts.use_preint:
@@ -176,29 +190,31 @@ def _lm_step(state: WindowState, data: WindowData, opts: SolveOptions, lam):
     return _solve_from(sys, state, lam), sys[5]
 
 
-def solve_window_core(state: WindowState, data: WindowData,
-                      opts: SolveOptions = SolveOptions()):
-    """LM with deferred accept/reject: one assembly per iteration; the
-    candidate of iteration i is judged by iteration i+1's assembly, a
-    rejected step reuses the accepted system with more damping.
+def _select(good, a, c):
+    """torch.where(good, c, a), with `good` () or (N,) against leaves
+    that lead with the same axes."""
+    return torch.where(good.reshape(good.shape + (1,) * (c.dim() - good.dim())), c, a)
 
-    Returns (state, info) with info = {cost0, cost, cost_history (iters,),
-    lambda}."""
-    sys_best = assemble(state, data, opts)
+
+def _lm(state: WindowState, data: WindowData, opts: SolveOptions, assemble_fn,
+        step_fn):
+    """LM with deferred accept/reject over `assemble_fn` and `step_fn`
+    (one window, or a batch whose rows each keep their own cost, λ and
+    accept/reject)."""
+    sys_best = assemble_fn(state, data, opts)
     cost0 = sys_best[5]
     cost_best = cost0
-    lam = torch.as_tensor(opts.lm_init, dtype=state.p.dtype,
-                          device=state.p.device)
+    lam = torch.full_like(cost0, opts.lm_init)
     st_best = state
-    cand = _solve_from(sys_best, state, lam)
+    cand = step_fn(sys_best, state, lam)
     hist = []
     for it in range(opts.iterations):
-        sys_cand = assemble(cand, data, opts)
+        sys_cand = assemble_fn(cand, data, opts)
         cost_cand = sys_cand[5]
         good = torch.isfinite(cost_cand) & (cost_cand < cost_best)
 
         def sel(a, c):
-            return torch.where(good, c, a)
+            return _select(good, a, c)
 
         st_best = tree_map(sel, st_best, cand)
         sys_best = tree_map(sel, sys_best, sys_cand)
@@ -208,10 +224,40 @@ def solve_window_core(state: WindowState, data: WindowData,
                           opts.lm_min, opts.lm_max)
         hist.append(cost_best)
         if it + 1 < opts.iterations:  # the last candidate is never judged
-            cand = _solve_from(sys_best, st_best, lam)
+            cand = step_fn(sys_best, st_best, lam)
     cost_hist = torch.stack(hist) if hist else cost0[None][:0]
     return st_best, {"cost0": cost0, "cost": cost_best,
                      "cost_history": cost_hist, "lambda": lam}
+
+
+def solve_window_core(state: WindowState, data: WindowData,
+                      opts: SolveOptions = SolveOptions()):
+    """LM with deferred accept/reject: one assembly per iteration; the
+    candidate of iteration i is judged by iteration i+1's assembly, a
+    rejected step reuses the accepted system with more damping.
+
+    Returns (state, info) with info = {cost0, cost, cost_history (iters,),
+    lambda}."""
+    return _lm(state, data, opts, assemble, _solve_from)
+
+
+def assemble_batch(state: WindowState, data: WindowData, opts: SolveOptions):
+    """`assemble` over a batch of N windows (every field with a leading
+    axis of N): K2 in one call over the batch, the other factors and the
+    elimination under `torch.func.vmap`."""
+    reproj = gram.reproj_factor_gram(state, data) if opts.use_reproj else None
+    return vmap(lambda s, d, r: assemble(s, d, opts, r))(state, data, reproj)
+
+
+_solve_from_batch = vmap(_solve_from)
+
+
+def solve_window_batch(state: WindowState, data: WindowData,
+                       opts: SolveOptions = SolveOptions()):
+    """`solve_window_core` on a batch of N windows of one shape; every
+    row keeps its own accept/reject and λ. info's entries lead with N
+    (cost_history is (iters, N))."""
+    return _lm(state, data, opts, assemble_batch, _solve_from_batch)
 
 
 def solve_window(state: WindowState, data: WindowData,
@@ -245,6 +291,45 @@ def solve_chained(state1: WindowState, data1: WindowData, opts1: SolveOptions,
     st1, _ = solve_window_core(state1, data1, opts1)
     st2, info2 = solve_window_core(_inject(state2, st1, s1, s2), data2, opts2)
     return st1, st2, info2
+
+
+def _inject_rows(state2: WindowState, st1: WindowState,
+                 slots: torch.Tensor) -> WindowState:
+    """`_inject` per row of a batch: row i's window-1 slot slots[i] into
+    its window-2 slot slots[i]."""
+    N, K = state2.q.shape[:2]
+    rows = torch.arange(N, device=slots.device)
+    at = (torch.arange(K, device=slots.device)[None, :] == slots[:, None])[..., None]
+
+    def put(dst, src):
+        return torch.where(at, src[rows, slots][:, None, :].to(dst.dtype), dst)
+
+    return state2._replace(q=put(state2.q, st1.q), p=put(state2.p, st1.p),
+                           v=put(state2.v, st1.v), bg=put(state2.bg, st1.bg),
+                           ba=put(state2.ba, st1.ba))
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def solve_chained_batch(states1: Sequence[WindowState], datas1: Sequence[WindowData],
+                        opts1: SolveOptions, states2: Sequence[WindowState],
+                        datas2: Sequence[WindowData], opts2: SolveOptions,
+                        slots) -> Tuple[WindowState, ...]:
+    """`solve_chained` over N sequences in one program (port of the JAX
+    package's `solve_chained_batch`): takes tuples of N per-sequence
+    (state, data) windows of one shape, stacks them on a leading axis,
+    runs the localize solve, the per-row injection of slot slots[i]
+    into slot slots[i] and the subwindow solve on the batch, and returns
+    the N solved subwindow states. `slots` holds N ints (or an (N,)
+    integer tensor)."""
+    st1, d1 = _stack(states1), _stack(datas1)
+    st2, d2 = _stack(states2), _stack(datas2)
+    slots = torch.as_tensor(slots, dtype=torch.long, device=st1.q.device)
+    out1, _ = solve_window_batch(st1, d1, opts1)
+    out2, _ = solve_window_batch(_inject_rows(st2, out1, slots), d2, opts2)
+    return tuple(tree_map(lambda x, i=i: x[i], out2) for i in range(len(states1)))
 
 
 def solve_keyframe_chain(state1: WindowState, data1: WindowData,

@@ -7,7 +7,8 @@
   4. essential-matrix RANSAC inlier gate,
   5. 2-point rotation RANSAC + 70th-percentile misalignment angle →
      FT_NO_TRANSLATION,
-  6. track-length-priority Poisson-disk re-filter (host),
+  6. track-length-priority Poisson-disk re-filter (host, the native
+     runtime's `poisson_filter`),
   7. GFTT detection with spacing filter into free slots,
   8. with an aligned depth image, its value at each final keypoint into
      `FrameRec.kp_depth`; the painter tap (`utils.inspection`).
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..config import Config
 from ..core import nputil
 from ..core.map import FrameRec, PipelineMap
@@ -37,7 +39,8 @@ def _poisson_accept(pts: np.ndarray, order: np.ndarray, keep_ok: np.ndarray,
                     min_dist: float) -> np.ndarray:
     """Greedy spacing filter over pts[order]: accept a point iff it is
     ≥ min_dist from every previously accepted point (grid-bucketed).
-    Returns the accept mask aligned with pts."""
+    Returns the accept mask aligned with pts. The plain version of
+    `native.poisson_filter`, which the tracker calls."""
     accept = np.zeros(len(pts), dtype=bool)
     cell = min_dist / np.sqrt(2.0)
     grid = {}
@@ -286,8 +289,8 @@ class KLTFeatureTracker:
             lengths[i] = len(tr.obs)
             keep_ok[i] = True
         order = np.argsort(-lengths, kind="stable")
-        accept = _poisson_accept(nxt, order, keep_ok & status,
-                                 cfg.feature_tracker_min_keypoint_distance)
+        accept = native.poisson_filter(nxt, order, keep_ok & status,
+                                       cfg.feature_tracker_min_keypoint_distance)
         out_slot = 0
         for i in np.nonzero(accept)[0]:
             tr = tracker_map.get_track(prev, int(slots[i]), create=True)
@@ -311,8 +314,8 @@ class KLTFeatureTracker:
         n_pre = len(used)
         all_pts = np.concatenate([frame._pts[used], cand], axis=0)
         keep_ok = np.concatenate([np.ones(n_pre, bool), cvalid])
-        accept = _poisson_accept(all_pts, np.arange(len(all_pts)), keep_ok,
-                                 cfg.feature_tracker_min_keypoint_distance)
+        accept = native.poisson_filter(all_pts, np.arange(len(all_pts)), keep_ok,
+                                       cfg.feature_tracker_min_keypoint_distance)
         sel = np.nonzero(accept[n_pre:])[0]
         sel = sel[:cfg.feature_tracker_max_keypoint_detection]
         Kinv = np.linalg.inv(frame.K)

@@ -5,12 +5,14 @@ aligned depth stream and an async prefetch wrapper.
 Timestamps are read in nanoseconds and returned in seconds, the camera
 streams shifted by `Config.camera_time_offset`. Images come out as
 float32 [0,1] (H,W) arrays, depth images as float32 metres (0 = no
-measurement). Image files decode through Pillow, as in the JAX
-package. Undistortion is a precomputed bilinear remap in numpy.
+measurement). PNG images decode through the native runtime
+(`native.png_load_gray`), other image files and the depth PNGs through
+Pillow, as in the JAX package. Undistortion is a precomputed bilinear
+remap, applied by the native runtime (`native.remap_bilinear`); the
+Pillow decode and the numpy remap stay here as their plain versions.
 
 A reader given a `StageTimes` records `read_image_time`,
-`read_depth_time` and `decode_time` (the Pillow decode of one file)
-into it.
+`read_depth_time` and `decode_time` (the decode of one file) into it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 from PIL import Image
 
+from .. import native
 from ..config import Config
 from ..utils.timing import StageTimes
 
@@ -48,10 +51,11 @@ def _stage(times: Optional[StageTimes], name: str):
     return times.stage(name) if times is not None else contextlib.nullcontext()
 
 
-def load_gray(path: str, times: Optional[StageTimes] = None) -> np.ndarray:
-    """Load an image as float32 grayscale in [0,1] (8-bit /255, 16-bit
-    /65535)."""
-    with _stage(times, "decode_time"), Image.open(path) as im:
+def load_gray_pillow(path: str) -> np.ndarray:
+    """Pillow's decode as float32 grayscale in [0,1] (8-bit /255,
+    16-bit /65535): other formats than PNG, and the plain version of
+    `native.png_load_gray`."""
+    with Image.open(path) as im:
         if im.mode not in ("L", "I;16", "I"):
             im = im.convert("L")
         arr = np.asarray(im)
@@ -60,6 +64,16 @@ def load_gray(path: str, times: Optional[StageTimes] = None) -> np.ndarray:
     if arr.dtype == np.uint16:
         return arr.astype(np.float32) / 65535.0
     return arr.astype(np.float32)
+
+
+def load_gray(path: str, times: Optional[StageTimes] = None) -> np.ndarray:
+    """Load an image as float32 grayscale in [0,1] (8-bit /255, 16-bit
+    /65535): PNGs through the native runtime, other formats through
+    Pillow."""
+    with _stage(times, "decode_time"):
+        if path.lower().endswith(".png"):
+            return native.png_load_gray(path)
+        return load_gray_pillow(path)
 
 
 def read_depth(path: str, times: Optional[StageTimes] = None) -> np.ndarray:
@@ -90,6 +104,10 @@ class UndistortMap:
         self.src_v = (fy * yd + cy).astype(np.float32)
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
+        return native.remap_bilinear(img, self.src_u, self.src_v)
+
+    def remap_plain(self, img: np.ndarray) -> np.ndarray:
+        """The numpy version of the native remap."""
         h, w = img.shape
         u0 = np.floor(self.src_u).astype(np.int32)
         v0 = np.floor(self.src_v).astype(np.int32)

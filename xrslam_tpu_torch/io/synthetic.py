@@ -10,7 +10,8 @@ The landmarks and the object's points of the JAX scenes are drawn with
 `jax.random`, which torch cannot reproduce: `wave_scene` and
 `moving_object` take them as `landmarks=` / `local=`, and the draws the
 drives use are committed in `io/data` (`wave_seed3_l500.npy`,
-`wave_seed0_l96.npy`; `object_seed7_n80.npy`, the object's unit draw).
+`wave_seed0_l96.npy`, the multi-sequence drive's `wave_seed{5,...}_l500.npy`;
+`object_seed7_n80.npy`, the object's unit draw).
 """
 
 from __future__ import annotations
@@ -27,8 +28,12 @@ from ..geometry import lie
 from ..imu import preintegration as pre
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+# the bench scene, the dynamic-object scene's static landmarks and the
+# multi-sequence drive's seeds (tools/multiseq.py)
 DEFAULT_LANDMARKS = {(3, 500): "wave_seed3_l500.npy",
-                     (0, 96): "wave_seed0_l96.npy"}
+                     (0, 96): "wave_seed0_l96.npy",
+                     **{(s, 500): f"wave_seed{s}_l500.npy"
+                        for s in (5, 11, 32, 7, 13, 21, 29)}}
 # moving_object's jax.random.uniform draw on [0, 1), keyed (seed, n_points)
 DEFAULT_OBJECT_DRAWS = {(7, 80): "object_seed7_n80.npy"}
 

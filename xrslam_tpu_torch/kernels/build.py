@@ -9,7 +9,8 @@ sources, so an edited kernel is rebuilt and a cached build is reused.
 
 Each kernel has a `Kernel` record holding its C entry points and a
 plain-int launch counter that its wrappers increment at every launch
-(`count`); a kernel with several entries also keeps a count per entry.
+(`count`); a kernel with several entries also keeps a count per entry,
+and launches that serve a batch of problems are counted apart too.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ SIGNATURES = {
     "klt_level_launch": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     "klt_track_launch": [_P] * 14 + [_I] * 14 + [_F] * 5 + [_P],
     "reproj_gram_launch": [_P] * 14 + [_I, _I, _I, _I, _P],
-    "reproj_factor_gram_launch": [_P] * 19 + [_I, _I, _I, _I, _P],
+    "reproj_factor_gram_launch": [_P] * 19 + [_I, _I, _I, _I, _I, _P],
 }
 
 
@@ -50,20 +51,25 @@ class Kernel:
         self.entries = tuple(entries)
         self.source = source
         self.replaces = replaces
-        self.launches = 0
-        self.entry_launches = {e: 0 for e in self.entries}
+        self.reset()
 
     def fn(self, entry: Optional[str] = None):
         return getattr(load_library(), entry or self.entries[0])
 
-    def count(self, entry: Optional[str] = None) -> None:
-        """One launch through `entry` (default: the first)."""
+    def count(self, entry: Optional[str] = None, windows: int = 1) -> None:
+        """One launch through `entry` (default: the first) serving
+        `windows` problems; a launch that serves more than one is also
+        counted in `batched` (launches, problems)."""
         self.launches += 1
         self.entry_launches[entry or self.entries[0]] += 1
+        if windows > 1:
+            self.batched["launches"] += 1
+            self.batched["windows"] += windows
 
     def reset(self) -> None:
         self.launches = 0
         self.entry_launches = {e: 0 for e in self.entries}
+        self.batched = {"launches": 0, "windows": 0}
 
 
 KLT_LEVEL = Kernel("klt_level", ("klt_level_launch", "klt_track_launch"),
