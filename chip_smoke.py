@@ -86,11 +86,11 @@
 
 9. writes the main path's scene to disk as an EuRoC-layout dataset
    with aligned depth images (`tools.make_dataset.render_dataset`,
-   752x480, 120 frames) and plays it back through
+   752x480, 90 frames) and plays it back through
    `tools.run_dataset.run_sequence` (the PNG reader, the YAML pair,
    `api.XRSLAM` with DEPTH_CAMERA and the depth-camera keyframe path:
    localize, host triangulation seeded from depth, refine); fails
-   unless >= 60 frames were tracked, ATE <= 0.25 m, the estimated span
+   unless >= 45 frames were tracked, ATE <= 0.25 m, the estimated span
    > half the ground truth's, the initializer's depth rescale ran,
    landmarks were depth-seeded, LANDMARKS and FEATURES came back
    non-empty while tracking, and the kernels launched as in 5; prints
@@ -160,7 +160,32 @@ Beside these:
   more than one window, and the first batched flush's windows solved
   one by one agree with their rows within 1e-9; prints both modes'
   frames/s, the speedup, K1/K2 launches per sequence-frame and where
-  the modes part, if they do.
+  the modes part, if they do;
+- after the batched K2, the landmark-sharded Schur BA
+  (`parallel.sharded`, ranks spawned by `parallel.mesh.run_ranks` with
+  a join timeout, sharing the card over gloo): a K=32, L=2048 f64
+  window (`io.synthetic.demo_window_problem`, numpy-seeded
+  perturbation, 3 LM iterations) solved here and with its columns over
+  W = 2 and 4 ranks, each held to the unsharded solve (cost rtol/atol
+  1e-8/1e-10, q, p, inv_depth 1e-6/1e-8), the cost decreasing, every
+  rank's frame state bit-equal and K2 launched on every rank in every
+  assemble over L/W columns; four K=12, L=384 windows on a 2 x 2 mesh
+  against the batched solve (1e-9/1e-12, 1e-7/1e-9), each rank's K2
+  call taking its 2 windows; the window in a one-rank NCCL group,
+  bit-equal to the unsharded solve; prints ms a solve at W = 1, 2, 4
+  and the collectives a solve and their bytes; K2's fused entry on every
+  rank's shard of that window (L/W = 2048, 1024, 512 columns) held to
+  its plain version at rtol/atol 1e-9, timed beside it and bounded;
+  then `tools.run_scaling --devices 1 2 --modes data model --reps 2`
+  with its table, labeled as ranks sharing the card;
+- in the K2 entry 1 phase, K2's library yardstick: the cuBLAS Gram
+  form (`gram.reproj_gram_matmul`) held to the plain version and timed
+  beside entry 1 at K=12, L=384 and K=32, L=2048 (f64), with its
+  number of kernel calls;
+- after the main drive, the 5-point solver's null-space basis for 64
+  hypotheses by the port's route (AᵀA to the host, scipy's LAPACK) and
+  by cuSOLVER's `eigh` on the card, both checked and timed, with the
+  main drive's count of such calls.
 
 Each drive sets the launch counts to 0 just before it and reads them
 just after; the `kernels` line gives the main path's as `launches` and
@@ -194,6 +219,10 @@ PNP_FRAMES = 60
 # cut from 120 frames when phases 9-10 took the script past 600 s
 PARSAC_FRAMES = 60
 LOC_FRAMES = 60
+# the dataset drive with depth (phase 9): cut from 120 frames with the
+# sharded phases (PERF.md section 4); held to half of them tracked, as
+# the main drive is
+DATASET_FRAMES = 90
 # the dataset CLI's run with --viz: long enough to track (the backend
 # starts near frame 29) so that the trajectory plot has an estimate
 CLI_FRAMES = 40
@@ -248,6 +277,30 @@ FACTOR_FLOPS = 490
 KLT_FLOPS_PER_TAP = 12
 KLT_WINDOW_FLOPS = 21
 KLT_SCHARR_FLOPS = 24
+# The sharded phases (PERF.md section 4): the JAX package's large-window
+# deployment, one window of K=32 frames and L=2048 landmark slots in
+# float64 (tests/test_large_window.py), its columns split over W ranks
+# that share cuda:0, 3 LM iterations from a numpy-seeded perturbation;
+# held to the unsharded solve at that test's tolerances.
+SHARD_K, SHARD_L = 32, 2048
+SHARD_WIDTHS = (2, 4)
+SHARD_ITERS = 3
+SHARD_TIMED = 3
+SHARD_SEED = 8
+SHARD_COST_TOL = (1e-8, 1e-10)
+SHARD_STATE_TOL = (1e-6, 1e-8)
+# data x model: four main-path windows on a 2 x 2 mesh of 4 ranks, held
+# to the batched solve at tests/test_parallel.py's tolerances
+DXM_K, DXM_L = 12, 384
+DXM_SEEDS = (21, 22, 23, 24)
+DXM_ITERS = 3
+DXM_COST_TOL = (1e-9, 1e-12)
+DXM_STATE_TOL = (1e-7, 1e-9)
+RANK_TIMEOUT_S = 300
+# cut from (1, 2, 4) when the sharded phases took the script past the
+# 800 s set for it (PERF.md section 4)
+SCALING_DEVICES = (1, 2)
+
 # The float32 fused kernel may be this many times as far from the
 # float64 result as the float32 plain version is (both in units of
 # eps * sum|term|, `gram.rounding_ratios`): another summation order.
@@ -611,7 +664,50 @@ def gram_phase(dev) -> dict:
                   f"(device alone {one['device_ms']}), plain {one['plain_ms']:.4f} ms, "
                   f"bound {one['bound_ms'] * 1e3:.3f} us by {one['bound_by']}",
                   flush=True)
+            one["library_gram_form"] = gram_form_yardstick(tag, xs, ref, tol, one)
         res[tag] = one
+    return res
+
+
+def torch_calls(fn) -> dict:
+    """The PyTorch operators one call of fn() dispatches: all of them,
+    and those that are not views (each of which runs a kernel)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {"operators": 0, "kernel_calls": 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen["operators"] += 1
+            seen["kernel_calls"] += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return seen
+
+
+def gram_form_yardstick(tag: str, xs, ref, tol: float, entry1: dict) -> dict:
+    """K2's library yardstick: the same five outputs from the same
+    inputs by the JAX package's augmented-Jacobian Gram form
+    (`gram.reproj_gram_matmul`: the frame block as one cuBLAS matrix
+    product), held to the plain version and timed beside entry 1."""
+    import torch
+
+    from xrslam_tpu_torch.estimation import gram
+
+    out = gram.reproj_gram_matmul(*xs)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": check_close(f"K2 Gram form {tag}", GRAM_NAMES, ref, out, tol)}
+    fn = lambda: gram.reproj_gram_matmul(*xs)  # noqa: E731
+    res.update(torch_calls(fn))
+    res["ms"] = (cuda_ms(fn) + cuda_ms(fn)) / 2
+    res["device_ms"] = device_ms(fn)
+    print(f"K2 library yardstick {tag}: the cuBLAS Gram form (reproj_gram_matmul, "
+          f"{res['kernel_calls']} kernel calls of {res['operators']} torch operators) "
+          f"{res['ms']:.4f} ms (device alone {res['device_ms']:.4f}), max |Δ| "
+          f"{res['max_abs_err']:.3e} vs plain; K2 entry 1 {entry1['ms']:.4f} ms "
+          f"(device alone {entry1['device_ms']:.4f})", flush=True)
     return res
 
 
@@ -672,13 +768,7 @@ def factor_gram_phase(dev) -> dict:
         a1 = cuda_ms(lambda: autodiff(state, data), reps=5)
         a2 = cuda_ms(lambda: autodiff(state, data), reps=5)
         res["autodiff_ms"] = (a1 + a2) / 2
-        ins = (state.q, state.p, state.inv_depth, data.q_bc, data.p_bc,
-               data.bearings, data.obs_mask, data.ref_idx, data.sqrt_inv_cov2,
-               data.landmark_mask)
-        n_act = res["active_observations"]
-        res.update(bound(nbytes(*ins, *out),
-                         n_act * (FACTOR_FLOPS + GRAM_FLOPS_ALL + GRAM_FLOPS_ANCHORED)
-                         + (K * L - n_act) * 8 * 3, state.p.element_size()))
+        res.update(factor_gram_bound(state, data, out))
         print(f"K2 reproj_factor_gram per call (K=12, L=384, f64): kernel "
               f"{res['ms']:.4f} ms (device alone {res['device_ms']}), plain "
               f"{res['plain_ms']:.4f} ms, autodiff composition "
@@ -686,6 +776,22 @@ def factor_gram_phase(dev) -> dict:
               f"by {res['bound_by']}", flush=True)
     res["guard"] = guard_check(dev)
     return res
+
+
+def factor_gram_bound(state, data, out) -> dict:
+    """K2 entry 2's bound on one window's inputs: each input read once
+    and each output written once; the factor and Gram operations of the
+    active observations, and 3 a coordinate of the others."""
+    from xrslam_tpu_torch.estimation import factors
+
+    K, L = state.q.shape[-2], state.inv_depth.shape[-1]
+    ins = (state.q, state.p, state.inv_depth, data.q_bc, data.p_bc,
+           data.bearings, data.obs_mask, data.ref_idx, data.sqrt_inv_cov2,
+           data.landmark_mask)
+    n_act = int(factors._active_mask(data).sum())
+    return bound(nbytes(*ins, *out),
+                 n_act * (FACTOR_FLOPS + GRAM_FLOPS_ALL + GRAM_FLOPS_ANCHORED)
+                 + (K * L - n_act) * 8 * 3, state.p.element_size())
 
 
 def guard_check(dev) -> dict:
@@ -743,12 +849,14 @@ def recording(module, name: str):
 def counted_drive(slam, seq, dev, max_frames=None, poisson_args=None) -> dict:
     """`timed_run` of `seq` through `slam` with every kernel launch count
     and the native runtime's call counts set to 0 just before and read
-    just after, and the frame pairs the tracker tracked and the
-    image-wide Scharr calls counted. A list `poisson_args` receives the
-    arguments of every `native.poisson_filter` call."""
+    just after, and the frame pairs the tracker tracked, the image-wide
+    Scharr calls and the 5-point solver's null-space bases counted. A
+    list `poisson_args` receives the arguments of every
+    `native.poisson_filter` call."""
     from xrslam_tpu_torch import native
     from xrslam_tpu_torch.frontend import image as img_ops
     from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.geometry import essential
     from xrslam_tpu_torch.kernels import build
     from xrslam_tpu_torch.tools.make_dataset import timed_run
 
@@ -756,12 +864,14 @@ def counted_drive(slam, seq, dev, max_frames=None, poisson_args=None) -> dict:
     native.reset_counts()
     with counting(klt, "track_keypoints") as pairs, \
             counting(img_ops, "scharr") as scharr_calls, \
+            counting(essential, "nullspace_basis") as bases, \
             recording(native, "poisson_filter") as poisson:
         res = timed_run(slam, seq, dev, max_frames=max_frames)
     res["launches"] = {k.name: k.launches for k in build.KERNELS}
     res["entry_launches"] = {k.name: dict(k.entry_launches) for k in build.KERNELS}
     res["frame_pairs_tracked"] = pairs[0]
     res["scharr_calls"] = scharr_calls[0]
+    res["nullspace_calls"] = bases[0]
     res["native_calls"] = dict(native.CALLS)
     if poisson_args is not None:
         poisson_args.extend(poisson)
@@ -938,9 +1048,9 @@ def visual_pnp_phase(dev, seq) -> dict:
     return res
 
 
-def dataset_phase(dev, out_dir: str, n_frames: int = N_FRAMES, width: int = 752,
+def dataset_phase(dev, out_dir: str, n_frames: int = DATASET_FRAMES, width: int = 752,
                   height: int = 480, focal: float = 458.0,
-                  min_tracked: int = 60, cli_frames: int = CLI_FRAMES) -> dict:
+                  min_tracked: int = DATASET_FRAMES // 2, cli_frames: int = CLI_FRAMES) -> dict:
     """Phase 9: the bench scene written to disk as an EuRoC-layout
     dataset with aligned depth images and played back through
     `tools.run_dataset` (the reader, the YAML pair, `api.XRSLAM` with
@@ -2192,6 +2302,389 @@ def multiseq_phase(dev, out_dir: str, n_seq: int = MULTISEQ_N,
     return res
 
 
+def perturbed_window(K: int, L: int, seed: int, dev):
+    """`io.synthetic.demo_window_problem(K, L)` in float64 on `dev`, its
+    state perturbed from a numpy seed with tests/helpers.perturb_state's
+    scales (frame 0 kept): rotation 0.01 rad, position and velocity
+    0.02, biases 0.002, inverse depths 2%."""
+    import torch
+
+    from xrslam_tpu_torch.geometry import lie
+    from xrslam_tpu_torch.io.synthetic import demo_window_problem
+    from xrslam_tpu_torch.utils.tree import tree_map
+
+    state, data = demo_window_problem(K, L)
+    rng = np.random.default_rng(seed)
+    keep = np.ones((K, 1))
+    keep[0] = 0.0
+
+    def d(scale):
+        return torch.as_tensor(scale * rng.normal(size=(K, 3)) * keep)
+
+    q = lie.quat_normalize(lie.quat_mul(state.q, lie.expmap(d(0.01))))
+    p, v, bg, ba = (state.p + d(0.02), state.v + d(0.02), state.bg + d(0.002),
+                    state.ba + d(0.002))
+    invd = state.inv_depth * torch.as_tensor(1.0 + 0.02 * rng.normal(size=L))
+    state = state._replace(q=q, p=p, v=v, bg=bg, ba=ba, inv_depth=invd)
+    return tree_map(lambda x: x.to(dev), state), tree_map(lambda x: x.to(dev), data)
+
+
+def sharded_rank(rank: int, n: int, jobs, device: str) -> list:
+    """One rank of the sharded phases (run by `parallel.mesh.run_ranks`):
+    per job (mode, mesh shape, K, L, seeds, iterations, timed solves),
+    the windows `perturbed_window(K, L, seed)` on this rank's device,
+    sharded ("model": one window) or batched and sharded ("data"),
+    solved once with the launch counts, K2's calls and the collectives
+    recorded, then `timed` more times. Returns per job the gathered
+    state (this rank's rows), info, counts and ms per solve."""
+    import torch
+    import torch.distributed as dist
+
+    from xrslam_tpu_torch.estimation import gram, solver
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.parallel import mesh as pmesh
+    from xrslam_tpu_torch.parallel import sharded
+
+    dev = pmesh.rank_device(rank, device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = []
+    for mode, shape, K, L, seeds, iters, timed in jobs:
+        mesh = pmesh.make_mesh(shape=shape, device_type=dev.type)
+        opts = solver.SolveOptions(iterations=iters)
+        wins = [perturbed_window(K, L, sd, dev) for sd in seeds]
+        if mode == "model":
+            st, dt = sharded.shard_window(mesh, *wins[0])
+
+            def solve():
+                return sharded.solve_window_sharded(mesh, st, dt, opts)
+        else:
+            states, datas = (solver._stack(x) for x in zip(*wins))
+
+            def solve():
+                return sharded.solve_batch_sharded(mesh, states, datas, opts)
+        with recording(gram, "reproj_factor_gram") as calls:
+            build.reset_launch_counts()
+            pmesh.reset_counts()
+            res, info = solve()
+            sync()
+            launches = {k.name: k.launches for k in build.KERNELS}
+            batched = dict(build.REPROJ_GRAM.batched)
+            coll = dict(pmesh.COLLECTIVES)
+        full = sharded.gather_window(mesh, res)
+        ms = None
+        if timed:
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                solve()
+            sync()
+            ms = (time.perf_counter() - t0) / timed * 1e3
+        out.append({
+            "state": {f: getattr(full, f).cpu().numpy() for f in full._fields},
+            "info": {k: v.cpu().numpy() for k, v in info.items()},
+            "k2_calls": [(tuple(a[0].q.shape[:-2]), int(a[1].bearings.shape[-2]))
+                         for a, _ in calls],
+            "launches": launches, "batched": batched, "collectives": coll, "ms": ms,
+            "backend": dist.get_backend(), "data_rank": mesh["data"].get_local_rank()})
+    return out
+
+
+def check_sharded(what: str, res: list, ref_state, ref_info, cost_tol, state_tol,
+                  names, rows=None) -> float:
+    """Fail unless rank 0's cost and states (`rows` of the reference)
+    agree with the reference at (rtol, atol), and every rank's frame
+    state and info are bit-equal to those of the first rank with the
+    same data coordinate. Returns the largest |Δ| of the states."""
+    def ref_of(x, r):
+        x = x.cpu().numpy()
+        return x if rows is None else x[rows(r)]
+
+    err = 0.0
+    for r in res:
+        np.testing.assert_allclose(r["info"]["cost"], ref_of(ref_info["cost"], r),
+                                   rtol=cost_tol[0], atol=cost_tol[1],
+                                   err_msg=f"{what}: cost")
+        for f in names:
+            want = ref_of(getattr(ref_state, f), r)
+            err = max(err, float(np.abs(r["state"][f] - want).max()))
+            np.testing.assert_allclose(r["state"][f], want, rtol=state_tol[0],
+                                       atol=state_tol[1], err_msg=f"{what}: {f}")
+        first = next(x for x in res if x["data_rank"] == r["data_rank"])
+        for f in ("q", "p", "v", "bg", "ba"):
+            if not np.array_equal(r["state"][f], first["state"][f]):
+                fail(f"{what}: a rank's {f} is not bit-equal to its model group's first")
+        for k, v in r["info"].items():
+            if not np.array_equal(v, first["info"][k]):
+                fail(f"{what}: a rank's info[{k}] is not bit-equal to its model group's first")
+    return err
+
+
+def sharded_model_phase(dev, K: int = SHARD_K, L: int = SHARD_L, widths=SHARD_WIDTHS,
+                        iters: int = SHARD_ITERS, timed: int = SHARD_TIMED,
+                        nccl: bool = True, dxm=(DXM_K, DXM_L, DXM_SEEDS, DXM_ITERS)) -> dict:
+    """The sharded Schur BA on ranks that share `dev`'s card: one window
+    of K frames and L landmark slots solved unsharded here and with its
+    columns over W ranks (gloo), each held to the unsharded solve, the
+    cost decreasing and every rank's frame state bit-equal; K2 launched
+    on every rank in every assemble, over L/W columns. The group of the
+    largest W also runs the data x model phase (`dxm`: K, L, seeds,
+    iterations; four windows on a 2 x 2 mesh) against the batched solve
+    here, each rank's K2 calls taking its two windows at once. Then, on
+    the card, the window in a one-rank NCCL group, bit-equal to the
+    unsharded solve. Times the solves, counts the collectives, and on
+    the card holds K2 on every rank's columns to its plain version
+    (`k2_shard_phase`)."""
+    import torch
+
+    from xrslam_tpu_torch.estimation import gram, solver
+    from xrslam_tpu_torch.parallel import mesh as pmesh
+    from xrslam_tpu_torch.parallel import sharded
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    opts = solver.SolveOptions(iterations=iters)
+    state, data = perturbed_window(K, L, SHARD_SEED, dev)
+    ref, info = solver.solve_window_core(state, data, opts)
+    sync()
+    if not (float(info["cost"]) < float(info["cost0"])
+            and bool(torch.isfinite(info["cost_history"]).all())):
+        fail(f"sharded phase: the unsharded K={K}, L={L} solve did not lower the cost")
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        solver.solve_window_core(state, data, opts)
+    sync()
+    res = {"K": K, "L": L, "iterations": iters, "cost0": float(info["cost0"]),
+           "cost": float(info["cost"]),
+           "ms_per_solve": {1: (time.perf_counter() - t0) / timed * 1e3}, "widths": {}}
+
+    dK, dL, dseeds, diters = dxm
+    dstates, ddatas = (solver._stack(x) for x in
+                       zip(*[perturbed_window(dK, dL, sd, dev) for sd in dseeds]))
+    dref, dinfo = solver.solve_window_batch(dstates, ddatas,
+                                            solver.SolveOptions(iterations=diters))
+    sync()
+    n_assemble = iters + 1
+    for W in widths:
+        jobs = [("model", (1, W), K, L, (SHARD_SEED,), iters, timed)]
+        if W == max(widths):
+            jobs.append(("data", (2, W // 2), dK, dL, dseeds, diters, 0))
+        t0 = time.perf_counter()
+        out = pmesh.run_ranks(sharded_rank, W, args=(jobs, dev.type), device=dev.type,
+                              timeout_s=RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        model = [o[0] for o in out]
+        err = check_sharded(f"sharded K={K} L={L} W={W}", model, ref, info,
+                            SHARD_COST_TOL, SHARD_STATE_TOL, ("q", "p", "inv_depth"))
+        r0 = model[0]
+        if not (float(r0["info"]["cost"]) < float(r0["info"]["cost0"])
+                and np.isfinite(r0["info"]["cost_history"]).all()):
+            fail(f"sharded W={W}: the cost did not decrease or its history is not finite")
+        for m in model:
+            if m["k2_calls"] != [((), L // W)] * n_assemble:
+                fail(f"sharded W={W}: K2's calls on a rank were {m['k2_calls']}, not "
+                     f"{n_assemble} over {L // W} columns")
+            if cuda and m["launches"]["reproj_gram"] != n_assemble:
+                fail(f"sharded W={W}: K2 launched {m['launches']['reproj_gram']} times "
+                     f"on a rank, not once per assemble ({n_assemble})")
+        coll = r0["collectives"]
+        one = {"backend": r0["backend"], "max_abs_err": err, "ms_per_solve": r0["ms"],
+               "collectives_per_solve": coll["calls"],
+               "bytes_per_collective": coll["bytes"] / max(coll["calls"], 1),
+               "launches": {k: sum(m["launches"][k] for m in model) for k in r0["launches"]},
+               "group_seconds": wall}
+        res["ms_per_solve"][W] = r0["ms"]
+        res["widths"][W] = one
+        print(f"sharded K={K} L={L} f64, W={W} ranks sharing {dev} over {one['backend']}: "
+              f"cost {float(r0['info']['cost']):.6e} (unsharded {res['cost']:.6e}), "
+              f"max |Δ| q/p/inv_depth {err:.3e} (rtol/atol {SHARD_STATE_TOL}), ranks "
+              f"bit-equal, K2 {n_assemble} calls a rank over {L // W} columns; "
+              f"{one['ms_per_solve']:.1f} ms a solve, {coll['calls']} collectives of "
+              f"{one['bytes_per_collective'] / 1e6:.3f} MB a solve; group {wall:.1f} s",
+              flush=True)
+        if len(out[0]) > 1:
+            res["data_x_model"] = data_x_model_check(
+                [o[1] for o in out], dref, dinfo, cuda, dK, dL, W // 2)
+    print(f"sharded K={K} L={L}, {iters} iterations, ms a solve: " + ", ".join(
+        f"W={w} {ms:.1f}" for w, ms in res["ms_per_solve"].items())
+        + " (W=1: unsharded, in this process)", flush=True)
+    if nccl and cuda:
+        res["nccl"] = nccl_check(K, L, iters, ref, info, dev)
+    res["k2_shard"] = k2_shard_phase(state, data, widths) if cuda else None
+    return res
+
+
+def data_x_model_check(out: list, dref, dinfo, cuda: bool, K: int, L: int, W: int) -> dict:
+    """The data x model ranks against the batched solve; each rank's K2
+    calls took its two windows in one call, over L/W columns."""
+    per = len(dinfo["cost"]) // (len(out) // W)
+    err = check_sharded("sharded data x model", out, dref, dinfo, DXM_COST_TOL,
+                        DXM_STATE_TOL, ("p", "inv_depth"),
+                        rows=lambda r: slice(per * r["data_rank"], per * (r["data_rank"] + 1)))
+    for o in out:
+        if not o["k2_calls"] or any(c != ((per,), L // W) for c in o["k2_calls"]):
+            fail(f"sharded data x model: K2's calls on a rank were {o['k2_calls']}")
+        if cuda and (o["batched"]["launches"] != o["launches"]["reproj_gram"]
+                     or o["batched"]["windows"] != per * o["launches"]["reproj_gram"]):
+            fail(f"sharded data x model: K2 did not take {per} windows a launch "
+                 f"({o['batched']}, {o['launches']})")
+    launches = {k: sum(o["launches"][k] for o in out) for k in out[0]["launches"]}
+    print(f"sharded data x model, {len(out)} ranks on a ({len(out) // W}, {W}) mesh over "
+          f"{out[0]['backend']}: {len(dinfo['cost'])} windows K={K} L={L}, "
+          f"max |Δ| p/inv_depth {err:.3e} vs the batched solve, each K2 call {per} "
+          f"windows over {L // W} columns, launches {launches}", flush=True)
+    return {"backend": out[0]["backend"], "max_abs_err": err, "launches": launches,
+            "windows_per_k2_call": per}
+
+
+def nccl_check(K: int, L: int, iters: int, ref, info, dev) -> dict:
+    """The model-mode window in a one-rank NCCL group on the card:
+    bit-equal to the unsharded solve."""
+    from xrslam_tpu_torch.parallel import mesh as pmesh
+
+    out = pmesh.run_ranks(sharded_rank, 1, args=([("model", (1, 1), K, L, (SHARD_SEED,),
+                                                   iters, 0)], dev.type),
+                          device=dev.type, timeout_s=RANK_TIMEOUT_S)[0][0]
+    if out["backend"] != "nccl":
+        fail(f"one-rank group on the card ran over {out['backend']}, not nccl")
+    same = all(np.array_equal(out["state"][f], getattr(ref, f).cpu().numpy())
+               for f in out["state"]) and all(
+        np.array_equal(v, info[k].cpu().numpy()) for k, v in out["info"].items())
+    if not same:
+        fail("one-rank NCCL solve is not bit-equal to the unsharded solve")
+    print(f"sharded K={K} L={L}, one-rank NCCL group: bit-equal to the unsharded solve, "
+          f"{out['collectives']['calls']} collectives, K2 {out['launches']['reproj_gram']} "
+          "launches", flush=True)
+    return {"backend": "nccl", "bit_equal": True, "launches": out["launches"]}
+
+
+def k2_shard_phase(state, data, widths) -> dict:
+    """K2's fused entry on every rank's landmark shard of the sharded
+    window (W = 1 and each of `widths`; L/W columns), held to its plain
+    version on the same inputs at rtol/atol 1e-9; on the first shard of
+    each width, timed against the plain version (the wrapper, and the
+    device alone) and bounded."""
+    import torch
+
+    from xrslam_tpu_torch.estimation import gram
+    from xrslam_tpu_torch.parallel import sharded
+
+    K, L = state.q.shape[0], state.inv_depth.shape[0]
+    res = {}
+    for W in (1,) + tuple(widths):
+        n, err, first = L // W, 0.0, None
+        for b in range(W):
+            cols = slice(b * n, (b + 1) * n)
+            s, d = (sharded.take_block(x, 0, None, cols) for x in (state, data))
+            out = gram.reproj_factor_gram_cuda(s, d)
+            ref = gram.reproj_factor_gram_plain(s, d)
+            torch.cuda.synchronize()
+            err = max(err, check_close(f"K2 entry 2 on shard {b} of {W} (K={K}, {n} "
+                                       "columns, f64) vs plain", GRAM_NAMES + ["cost"],
+                                       ref, out, 1e-9))
+            first = first or (s, d, out)
+        s, d, out = first
+        one = {"W": W, "shards_checked": W, "max_abs_err": err}
+        one.update(timed_pair(lambda: gram.reproj_factor_gram_cuda(s, d),
+                              lambda: gram.reproj_factor_gram_plain(s, d)))
+        one.update(factor_gram_bound(s, d, out))
+        res[n] = one
+        print(f"K2 reproj_factor_gram on a rank's shard (K={K}, {n} columns, f64; W={W}): "
+              f"max |Δ| {err:.3e} vs plain over all {W} shards (rtol/atol 1e-9); "
+              f"kernel {one['ms']:.4f} ms (device alone {one['device_ms']:.4f}), plain "
+              f"{one['plain_ms']:.4f} ms, bound {one['bound_ms'] * 1e3:.3f} us by "
+              f"{one['bound_by']}", flush=True)
+    return res
+
+
+def nullspace_phase(dev, drive) -> dict:
+    """The 5-point solver's null-space basis for one RANSAC call's 64
+    hypotheses: the port's route (AᵀA copied to the host, scipy's
+    LAPACK `syevd` a matrix) against cuSOLVER's batched `eigh` on the
+    card, both checked to span the null space and timed with CUDA events
+    around the call, and the difference charged to a frame of the main
+    drive at its count of calls."""
+    import torch
+
+    from xrslam_tpu_torch.geometry import essential
+
+    rng = np.random.default_rng(5)
+    x1 = np.concatenate([rng.normal(0, 0.3, (64, 5, 2)), np.ones((64, 5, 1))], -1)
+    w = rng.normal(0, 0.1, 3)
+    th = np.linalg.norm(w)
+    k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    R = np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+    X = x1 * rng.uniform(2, 6, (64, 5, 1))
+    x2 = X @ R.T + np.array([0.3, 0.05, 0.02])
+    x1, x2 = (torch.as_tensor(x, dtype=torch.float64, device=dev)
+              for x in (x1, x2 / x2[..., 2:]))
+    A = torch.einsum("...ni,...nj->...nij", x2, x1).reshape(64, 5, 9)
+
+    def card():
+        ata = A[..., 0, :, None] * A[..., 0, None, :]
+        for i in range(1, 5):
+            ata = ata + A[..., i, :, None] * A[..., i, None, :]
+        return torch.linalg.eigh(ata)[1][..., :, 0:4]
+
+    def host():
+        return essential.nullspace_basis(x1, x2)
+
+    res = {}
+    for name, fn in (("host", host), ("card", card)):
+        resid = float((A @ fn()).abs().max())
+        if not resid < 1e-9:
+            fail(f"5-point null-space basis by the {name} route: |A·v| {resid:.3e}")
+        res[f"{name}_max_abs_Av"] = resid
+    h1, c1, c2, h2 = cuda_ms(host), cuda_ms(card), cuda_ms(card), cuda_ms(host)
+    res.update(host_ms=(h1 + h2) / 2, card_ms=(c1 + c2) / 2,
+               calls=drive["nullspace_calls"], frames=drive["frames"])
+    res["ms_per_frame"] = (res["host_ms"] - res["card_ms"]) * res["calls"] / res["frames"]
+    print(f"5-point null-space basis, 64 hypotheses, f64: host route (copy + scipy "
+          f"syevd a matrix) {res['host_ms']:.4f} ms, cuSOLVER eigh on the card "
+          f"{res['card_ms']:.4f} ms (host, card, card, host: {h1:.4f}, {c1:.4f}, "
+          f"{c2:.4f}, {h2:.4f}); the main drive called it {res['calls']} times in "
+          f"{res['frames']} frames: {res['ms_per_frame']:.4f} ms a frame more than "
+          f"on the card", flush=True)
+    return res
+
+
+def scaling_phase(dev, devices=SCALING_DEVICES, extra=()) -> dict:
+    """`tools.run_scaling --devices ... --modes data model --reps 2` (and
+    `extra` arguments) on `dev`'s type; its table printed here, labeled
+    with where the ranks ran."""
+    import io
+
+    import torch
+
+    from xrslam_tpu_torch.tools import run_scaling
+
+    argv = ["--devices", *map(str, devices), "--modes", "data", "model", "--reps", "2",
+            "--device", dev.type, *extra]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = run_scaling.main(argv)
+    wall = time.perf_counter() - t0
+    where = (f"sharing one {torch.cuda.get_device_name(dev)}" if dev.type == "cuda"
+             else "on the CPU")
+    for mode, rows in res.items():
+        for r in rows:
+            if not r["cost_finite"]:
+                fail(f"run_scaling {mode} {r['devices']} ranks: the cost is not finite")
+            print(f"run_scaling [{mode}] {r['devices']} ranks {where} ({r['backend']}): "
+                  f"{r['windows_per_s']:.1f} windows/s, {r['solve_ms']:.2f} ms a solve, "
+                  f"speedup {r['speedup']:.2f}x, efficiency {r['efficiency']:.0%}, "
+                  f"{r['collectives_per_solve']:.0f} collectives a solve", flush=True)
+    print(f"run_scaling {' '.join(argv)}: {wall:.1f} s (ranks {where}: no multi-card "
+          "scaling)", flush=True)
+    return {"rows": res, "seconds": wall}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measured number to this JSON file")
@@ -2227,6 +2720,8 @@ def main(argv=None) -> None:
     k2_gram = gram_phase(dev)
     k2 = factor_gram_phase(dev)
     k2_batch = factor_gram_batch_phase(dev)
+    shard = sharded_model_phase(dev)
+    scaling = scaling_phase(dev)
     repeat = parsac_repeat_phase(dev)
 
     from xrslam_tpu_torch.tools.make_dataset import render_sequence
@@ -2236,6 +2731,7 @@ def main(argv=None) -> None:
     print(f"rendered {N_FRAMES} frames 752x480 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     drive, main_slam = drive_phase(dev, seq)
+    bases = nullspace_phase(dev, drive)
     nat = native_phase(drive)
     valid = validator_phase(main_slam.pipeline.swt)
     del main_slam
@@ -2277,7 +2773,10 @@ def main(argv=None) -> None:
                             "capi": capi["launches"][k.name],
                             "ros_node": ros["launches"][k.name],
                             "multiseq_sequential": mseq["sequential"]["launches"][k.name],
-                            "multiseq_batched": mseq["batched"]["launches"][k.name]}})
+                            "multiseq_batched": mseq["batched"]["launches"][k.name],
+                            "sharded_model": sum(w["launches"][k.name]
+                                                 for w in shard["widths"].values()),
+                            "sharded_data": shard["data_x_model"]["launches"][k.name]}})
     kernels[0]["longest_chain"] = k1["longest_chain"]
     kernels[0]["latency_floor_us"] = k1["latency_floor_us"]
     kernels[0]["chain_ms"] = k1["chain_ms"]
@@ -2287,7 +2786,11 @@ def main(argv=None) -> None:
     e1 = k2_gram["K=12 L=384 float64"]
     kernels[1]["entry_reproj_gram"] = {
         key: e1[key] for key in ("max_abs_err", "ms", "plain_ms", "device_ms",
-                                 "bound_ms", "bound_by")}
+                                 "bound_ms", "bound_by", "library_gram_form")}
+    kernels[1]["entry_reproj_factor_gram_shard"] = {
+        n: {key: one[key] for key in ("W", "shards_checked", "max_abs_err", "ms", "plain_ms",
+                                      "device_ms", "bound_ms", "bound_by")}
+        for n, one in shard["k2_shard"].items()}
     kernels[1]["entry_reproj_factor_gram_batched"] = {
         key: k2_batch[key] for key in ("N", "K", "L", "max_abs_err", "ms", "plain_ms",
                                        "device_ms", "four_single_ms",
@@ -2307,6 +2810,8 @@ def main(argv=None) -> None:
                        "visual_pnp_drive": pnp_drive, "object_drive": obj,
                        "dataset_drive": dataset, "localizer_drive": loc,
                        "validator": valid, "checkpoint": ckpt, "benchmark": bench,
+                       "sharded": shard, "run_scaling": scaling,
+                       "nullspace_basis": bases,
                        "seconds": time.perf_counter() - t_start,
                        "kernels": kernels}, f, indent=1, default=float)
     print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -305,3 +305,84 @@ def test_multiseq_phase_rehearsal(monkeypatch, tmp_path):
     assert res["batched"]["k2_batched"]["launches"] > 0
     assert res["batched"]["launches"]["reproj_gram"] < res["sequential"]["launches"][
         "reproj_gram"]
+
+
+def test_sharded_phases_rehearsal(capsys):
+    """The sharded phases on CPU ranks over gloo at K=4, L=32 (W = 2
+    and 4; the data x model phase on four K=4, L=32 windows, 2
+    iterations), the plain K2 standing in for the kernel: every
+    agreement, bit-equality and K2-call check runs here. The one-rank
+    NCCL check and K2 on the shards need the card."""
+    res = chip_smoke.sharded_model_phase(torch.device("cpu"), K=4, L=32, widths=(2, 4),
+                                         iters=3, timed=1, nccl=False,
+                                         dxm=(4, 32, chip_smoke.DXM_SEEDS, 2))
+    assert set(res["widths"]) == {2, 4} and res["cost"] < res["cost0"]
+    for W, one in res["widths"].items():
+        assert one["backend"] == "gloo" and one["collectives_per_solve"] == 2 * 3 + 1
+        assert one["bytes_per_collective"] > 8 * (4 * 15) ** 2
+        assert one["launches"]["reproj_gram"] == 0      # the plain version
+    assert res["data_x_model"]["windows_per_k2_call"] == 2
+    assert "nccl" not in res and res["k2_shard"] is None
+    out = capsys.readouterr().out
+    assert "W=4 ranks sharing cpu over gloo" in out and "data x model" in out
+
+
+def test_k2_shard_phase_rehearsal(monkeypatch, capsys):
+    """K2's fused entry on every shard of a K=4, L=32 window at W = 1, 2
+    and 4, the plain version standing in for the kernel, each shard
+    held to the plain version; the CUDA timers stubbed."""
+    from xrslam_tpu_torch.estimation import gram
+
+    calls = []
+
+    def k2(state, data):
+        calls.append(int(state.inv_depth.shape[0]))
+        return gram.reproj_factor_gram_plain(state, data)
+
+    monkeypatch.setattr(gram, "reproj_factor_gram_cuda", k2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=20, warmup=3: (fn(), 2.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, calls=20, reps=10: (fn(), 0.5)[1])
+    state, data = chip_smoke.perturbed_window(4, 32, chip_smoke.SHARD_SEED,
+                                              torch.device("cpu"))
+    res = chip_smoke.k2_shard_phase(state, data, (2, 4))
+    assert sorted(res) == [8, 16, 32]
+    for n, one in res.items():
+        assert one["shards_checked"] == 32 // n and one["max_abs_err"] == 0.0
+        assert one["bound_ms"] > 0 and one["plain_ms"] == 2.0
+    assert calls.count(32) >= 1 and calls.count(16) >= 2 and calls.count(8) >= 4
+    assert "over all 4 shards" in capsys.readouterr().out
+
+
+def test_nullspace_phase_rehearsal(monkeypatch):
+    """The null-space timing phase on CPU tensors: both routes span the
+    null space of the 64 hypotheses' constraints; the CUDA timer
+    stubbed."""
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=20, warmup=3: (fn(), 1.0)[1])
+    res = chip_smoke.nullspace_phase(torch.device("cpu"),
+                                     {"nullspace_calls": 12, "frames": 6})
+    assert res["host_max_abs_Av"] < 1e-9 and res["card_max_abs_Av"] < 1e-9
+    assert res["ms_per_frame"] == 0.0 and res["calls"] == 12
+
+
+def test_scaling_phase_rehearsal(capsys):
+    res = chip_smoke.scaling_phase(torch.device("cpu"), devices=(1, 2),
+                                   extra=("--frames", "4", "--landmarks", "32",
+                                          "--iters", "2", "--batch", "2"))
+    assert [r["devices"] for r in res["rows"]["model"]] == [1, 2]
+    assert "run_scaling [data] 2 ranks on the CPU (gloo)" in capsys.readouterr().out
+
+
+def test_gram_form_yardstick_rehearsal(monkeypatch):
+    """K2's library yardstick on CPU tensors: the Gram form held to the
+    plain version at gram_phase's tolerance, its operators counted; the
+    CUDA timers stubbed."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=20, warmup=3: (fn(), 2.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, calls=20, reps=10: (fn(), 0.5)[1])
+    xs, _ = chip_smoke.gram_inputs(12, 384, 1, torch.float64, torch.device("cpu"))
+    ref = gram.reproj_gram_plain(*xs)
+    res = chip_smoke.gram_form_yardstick("K=12 L=384 float64", xs, ref, 1e-9,
+                                         {"ms": 1.0, "device_ms": 0.25})
+    assert res["max_abs_err"] < 1e-9 and res["ms"] == 2.0 and res["device_ms"] == 0.5
+    assert 0 < res["kernel_calls"] < res["operators"]

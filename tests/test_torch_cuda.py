@@ -7,6 +7,10 @@ a machine with a CUDA device and no JAX:
 (`tests/conftest.py` imports jax, hence `--noconftest` there). Every
 test skips without a CUDA device.
 
+K2's fused entry also runs on one rank's landmark shard of the sharded
+solve (K=32, L/W columns), and the cuBLAS Gram form
+(`gram.reproj_gram_matmul`) is held to entry 1's plain version.
+
 K2's fused entry also takes a batch of windows (a leading axis): one
 call against the plain version, each row bit-equal to a single-window
 call, the N=1 batch bit-equal to the single-window call; and the batched
@@ -349,6 +353,45 @@ def test_reproj_factor_gram_matches_plain(dev, K, L, dt, tol):
             torch.testing.assert_close(b, a, rtol=tol, atol=tol, msg=n)
     for a, b in zip(out, gram.reproj_factor_gram(state, data)):
         assert torch.equal(a, b), "two launches differ"
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_reproj_factor_gram_on_a_landmark_shard(dev, W):
+    """Entry 2 on each rank's block of L/W columns of the sharded phase's
+    K=32, L=2048 window (`parallel.sharded.take_block`), f64, against its
+    plain version: a shard is a window of L/W columns."""
+    from xrslam_tpu_torch.io.synthetic import demo_window_problem
+    from xrslam_tpu_torch.parallel import sharded
+
+    state, data = demo_window_problem(32, 2048, device=dev)
+    state = state._replace(inv_depth=state.inv_depth * 1.02)   # off the optimum
+    n = 2048 // W
+    for r in range(W):
+        s, d = (sharded.take_block(x, 0, None, slice(r * n, (r + 1) * n))
+                for x in (state, data))
+        before = build.REPROJ_GRAM.launches
+        out = gram.reproj_factor_gram(s, d)
+        ref = gram.reproj_factor_gram_plain(s, d)
+        torch.cuda.synchronize()
+        assert build.REPROJ_GRAM.launches == before + 1
+        for name, a, b in zip(NAMES + ["cost"], ref, out):
+            assert b.shape == a.shape, name
+            torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-9, msg=name)
+
+
+@pytest.mark.parametrize("K,L", [(12, 384), (32, 2048)], ids=["path", "large_window"])
+def test_reproj_gram_matmul_matches_plain(dev, K, L):
+    """The cuBLAS Gram form (K2's library yardstick) against entry 1's
+    plain version on the card, f64; it launches no kernel of the port."""
+    xs = _gram_inputs(K, L, K * 1000 + L, torch.float64, dev)
+    before = build.REPROJ_GRAM.launches
+    out = gram.reproj_gram_matmul(*xs)
+    ref = gram.reproj_gram_plain(*xs)
+    torch.cuda.synchronize()
+    assert build.REPROJ_GRAM.launches == before
+    for n, a, b in zip(NAMES, ref, out):
+        assert b.shape == a.shape, n
+        torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-9, msg=n)
 
 
 def _stack(trees):

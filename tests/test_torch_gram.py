@@ -1,7 +1,9 @@
 """K2 (estimation/gram.py): the port's reprojection Gram block against
 the JAX package's three formulations — the Pallas kernel run in the
 Pallas interpreter, the XLA Gram reformulation, and the einsum branch
-of solver.assemble — on the same Cauchy-weighted inputs, in float64.
+of solver.assemble — on the same Cauchy-weighted inputs, in float64;
+and the port's Gram form (`reproj_gram_matmul`, K2's library
+yardstick) against the JAX package's `reproj_gram_xla`.
 
 Tolerance rtol = atol = 1e-9 (the JAX package's own Pallas parity
 limit): the formulations differ only in summation order.
@@ -65,6 +67,14 @@ def test_plain_gram_matches_xla_gram(problem):
     _, _, args = problem
     ref = jgram.reproj_gram_xla(*args)
     for n, a, b in zip(NAMES, ref, _port(args)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), err_msg=n, **TOL)
+
+
+def test_gram_matmul_matches_xla_gram(problem):
+    _, _, args = problem
+    ref = jgram.reproj_gram_xla(*args)
+    out = gram.reproj_gram_matmul(*(torch.as_tensor(np.array(a)) for a in args))
+    for n, a, b in zip(NAMES, ref, out):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), err_msg=n, **TOL)
 
 

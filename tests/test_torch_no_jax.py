@@ -102,3 +102,36 @@ def test_host_runtime_capi_and_batch_entry_points_with_jax_blocked():
     src = open(os.path.join(PKG, "native", "xr_capi.cpp")).read()
     assert 'PyImport_ImportModule("xrslam_tpu_torch.capi_host")' in src
     assert "xrslam_tpu." not in src
+
+
+def test_sharded_solve_and_scaling_with_jax_blocked():
+    """The sharded solve's modules, `run_scaling`, the Gram form and the
+    window fixtures import and exist with jax and the JAX package
+    blocked, and a one-rank model-mode `run_scaling` runs on the CPU."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        from xrslam_tpu_torch import parallel
+        from xrslam_tpu_torch.estimation import gram
+        from xrslam_tpu_torch.io import synthetic
+        from xrslam_tpu_torch.parallel import mesh, sharded
+        from xrslam_tpu_torch.tools import run_scaling
+        assert parallel.mesh is mesh and parallel.sharded is sharded
+        for fn in (mesh.make_mesh, mesh.initialize_distributed, mesh.run_ranks,
+                   sharded.shard_window, sharded.gather_window,
+                   sharded.solve_window_sharded, sharded.solve_batch_sharded,
+                   gram.reproj_gram_matmul, synthetic.circle_scene,
+                   synthetic.window_problem, synthetic.demo_window_problem):
+            assert callable(fn)
+        res = run_scaling.main(["--device", "cpu", "--devices", "1", "--modes", "model",
+                                "--frames", "4", "--landmarks", "32", "--iters", "1",
+                                "--reps", "1"])
+        assert res["model"][0]["cost_finite"]
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "OK" in proc.stdout

@@ -16,6 +16,11 @@ entries that share one CUDA source (csrc/reproj_gram.cu).
    every output with that leading axis, in the same two launches: the
    port's counterpart of `jax.vmap` over the Pallas kernel.
 
+`reproj_gram_matmul` is the JAX package's augmented-Jacobian Gram
+form (`reproj_gram_xla`), the frame block as one `torch.matmul`
+(cuBLAS on the card). It is K2's library yardstick in `chip_smoke.py`,
+not a route of the port: `assemble` never calls it.
+
 Each entry has a plain version (`reproj_gram_plain`: the einsum branch
 of the JAX `solver.assemble`, solver.py:119-136;
 `reproj_factor_gram_plain`: closed-form factors + weights + that), taken
@@ -62,6 +67,27 @@ def reproj_gram_plain(r, Jt, Jr6, Jd, R1):
           + torch.einsum("li,lm->mi", torch.einsum("klri,klr->li", Jr6, r), R1))
     Hfl6 = (torch.einsum("klri,klr->kil", Jt, Jd)
             + torch.einsum("li,lm->mil", torch.einsum("klri,klr->li", Jr6, Jd), R1))
+    Hll = torch.einsum("klr,klr->l", Jd, Jd)
+    bl = torch.einsum("klr,klr->l", Jd, r)
+    return P, b6, Hll, Hfl6, bl
+
+
+def reproj_gram_matmul(r, Jt, Jr6, Jd, R1):
+    """Entry 1's function in the augmented-Jacobian Gram form (port of
+    `xrslam_tpu/estimation/gram.py:56` `reproj_gram_xla`): the pose
+    Jacobian of every residual over all K frames, Ap (K·L·2, K·6), so
+    that P = Apᵀ·Ap and b6 = Apᵀ·r are one matrix product each, with the
+    landmark terms per column. Same inputs and outputs as
+    `reproj_gram_plain`."""
+    K, L = r.shape[:2]
+    eyeK = torch.eye(K, dtype=r.dtype, device=r.device)
+    # Ap[k,l,r,m,i]: d r_klr / d pose entry (m,i)
+    Ap = (torch.einsum("km,klri->klrmi", eyeK, Jt)
+          + torch.einsum("lm,klri->klrmi", R1, Jr6))
+    Ap2 = Ap.reshape(K * L * 2, K * 6)
+    P = (Ap2.T @ Ap2).reshape(K, 6, K, 6)
+    b6 = (Ap2.T @ r.reshape(-1)).reshape(K, 6)
+    Hfl6 = torch.einsum("klrmi,klr->mil", Ap, Jd)
     Hll = torch.einsum("klr,klr->l", Jd, Jd)
     bl = torch.einsum("klr,klr->l", Jd, r)
     return P, b6, Hll, Hfl6, bl

@@ -14,11 +14,29 @@ a leading batch axis (the JAX package's `jax.vmap`): K2 takes the batch
 in one call, the rest of `assemble` and the step run under
 `torch.func.vmap`, and LM's accept/reject, λ and the slot injection are
 per row.
+
+Sharded mode (`group`, a `torch.distributed` process group over
+landmark shards; `parallel/sharded.py` is the entry point): each rank
+holds a contiguous block of the landmark columns and the whole frame
+state. The frame-block H, b and the landmark factors' cost are summed
+over the group after the reprojection and rotation factors, before the
+frame-only preintegration and prior (JAX `solver.py`:152-155); the
+Schur term Hfl·Hll⁻¹·Hflᵀ and its right-hand side before the reduced
+camera solve (:245-247); the landmark cost in `compute_cost` (:209-210).
+Each point packs its tensors into one flat buffer and makes one
+`all_reduce` (`parallel.mesh.all_reduce_sum`), two per LM iteration.
+Every rank then holds the same reduced system, takes the same frame
+step and the same accept/reject, and back-substitutes its own landmark
+block. A collective cannot run inside `torch.func.vmap`, so `assemble`
+and `_solve_from` are each split at their reduction point into a
+landmark-local half and a frame half: the batched path vmaps each half
+and reduces the stacked partials between them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Sequence, Tuple
 
 import torch
@@ -68,15 +86,19 @@ def _preint_blocks(H, b, rp, Ji, Jj, K):
     return H, b
 
 
-def assemble(state: WindowState, data: WindowData, opts: SolveOptions,
-             reproj=None):
-    """Build the GN normal equations. `reproj` is K2's result for this
-    window when the caller computed it (`assemble_batch`).
+def _all_reduce(group, *tensors):
+    """The tensors summed over `group`'s ranks in one collective."""
+    from ..parallel.mesh import all_reduce_sum
 
-    Returns (H (K,15,K,15), b (K,15), Hll (L,), Hfl (K,15,L), bl (L,),
-    cost ()) with fixed/masked entries eliminated (zero rows/cols, unit
-    diagonal).
-    """
+    return all_reduce_sum(tensors, group)
+
+
+def _assemble_landmarks(state: WindowState, data: WindowData, opts: SolveOptions,
+                        reproj=None):
+    """The landmark-indexed half of `assemble`: the reprojection (K2's
+    result `reproj` when the caller computed it) and rotation factors.
+    Returns (H, b, Hll, Hfl, bl, cost); with landmark shards, H, b and
+    cost are this shard's partial sums."""
     K = state.q.shape[0]
     L = state.inv_depth.shape[0]
     # new_zeros: under vmap (assemble_batch) the accumulators are batched
@@ -87,7 +109,6 @@ def assemble(state: WindowState, data: WindowData, opts: SolveOptions,
     Hfl = zeros((K, ES_SIZE, L))
     bl = zeros((L,))
     cost = zeros(())
-    dt = state.p.dtype
 
     if opts.use_reproj:
         P, b6, Hll_c, Hfl6, bl_c, c = (gram.reproj_factor_gram(state, data)
@@ -110,7 +131,16 @@ def assemble(state: WindowState, data: WindowData, opts: SolveOptions,
         torch.diagonal(H[:, 0:3, :, 0:3], dim1=0, dim2=2).add_(
             torch.einsum("klri,klrj->kij", Jq, Jq).permute(1, 2, 0))
         b[:, 0:3] += torch.einsum("klri,klr->ki", Jq, r)
+    return H, b, Hll, Hfl, bl, cost
 
+
+def _assemble_frames(sys, state: WindowState, data: WindowData, opts: SolveOptions):
+    """The frame half of `assemble`: adds the preintegration factors
+    and the prior to the (reduced) landmark half `sys`, then eliminates
+    fixed and masked entries."""
+    H, b, Hll, Hfl, bl, cost = sys
+    K = state.q.shape[0]
+    dt = state.p.dtype
     if opts.use_preint:
         rp, Ji, Jj, _ = factors.preint_residual_jac(state, data)
         cost = cost + 0.5 * torch.sum(rp * rp)
@@ -140,9 +170,27 @@ def assemble(state: WindowState, data: WindowData, opts: SolveOptions,
     return H, b, Hll, Hfl, bl, cost
 
 
-def compute_cost(state: WindowState, data: WindowData,
-                 opts: SolveOptions) -> torch.Tensor:
-    """Total robustified cost (residuals only)."""
+def assemble(state: WindowState, data: WindowData, opts: SolveOptions,
+             reproj=None, group=None):
+    """Build the GN normal equations. `reproj` is K2's result for this
+    window when the caller computed it (`assemble_batch`). With `group`
+    the landmark-indexed inputs are this rank's shard, and H, b and the
+    landmark cost are summed over the group before the frame factors.
+
+    Returns (H (K,15,K,15), b (K,15), Hll (L,), Hfl (K,15,L), bl (L,),
+    cost ()) with fixed/masked entries eliminated (zero rows/cols, unit
+    diagonal).
+    """
+    H, b, Hll, Hfl, bl, cost = _assemble_landmarks(state, data, opts, reproj)
+    if group is not None:
+        H, b, cost = _all_reduce(group, H, b, cost)
+    return _assemble_frames((H, b, Hll, Hfl, bl, cost), state, data, opts)
+
+
+def compute_cost(state: WindowState, data: WindowData, opts: SolveOptions,
+                 group=None) -> torch.Tensor:
+    """Total robustified cost (residuals only); with `group`, the
+    landmark factors' cost is summed over the landmark shards."""
     cost = torch.zeros((), dtype=state.p.dtype, device=state.p.device)
     if opts.use_reproj:
         r, _, _, _, m = factors.reproj_residual_jac(state, data)
@@ -150,6 +198,8 @@ def compute_cost(state: WindowState, data: WindowData,
     if opts.use_rotation:
         r, _, m = factors.rotation_residual_jac(state, data)
         cost = cost + torch.sum(factors.cauchy_weights(r, m)[1])
+    if group is not None:
+        (cost,) = _all_reduce(group, cost)
     if opts.use_preint:
         rp = factors.preint_residual_jac(state, data)[0]
         cost = cost + 0.5 * torch.sum(rp * rp)
@@ -157,21 +207,29 @@ def compute_cost(state: WindowState, data: WindowData,
     return cost + 0.5 * torch.sum(rm * rm)
 
 
-def _solve_from(sys, state: WindowState, lam) -> WindowState:
-    """One damped-GN step from an assembled system: Schur-eliminate
-    landmarks, Jacobi-scaled Cholesky solve of the reduced camera
-    system, back-substitute, retract. A non-positive-definite system
-    gives a non-finite candidate (rejected by the LM test), never an
-    exception or a host sync."""
-    H, b, Hll, Hfl, bl, _ = sys
+def _schur_landmarks(sys, lam):
+    """The landmark-indexed half of `_solve_from`: the damped inverse
+    landmark diagonal and the Schur terms Hfl·Hll⁻¹·Hflᵀ and
+    Hfl·Hll⁻¹·bl (with landmark shards, this shard's partial sums).
+    Returns (S_lm (KM,KM), rhs_lm (KM,), inv_Hll (L,))."""
+    _, _, Hll, Hfl, bl, _ = sys
+    Hfl2 = Hfl.reshape(-1, Hfl.shape[-1])
+    inv_Hll = 1.0 / (Hll * (1.0 + lam))
+    return (Hfl2 * inv_Hll[None, :]) @ Hfl2.T, Hfl2 @ (inv_Hll * bl), inv_Hll
+
+
+def _schur_frames(sys, state: WindowState, lam, S_lm, rhs_lm, inv_Hll) -> WindowState:
+    """The frame half of `_solve_from`: the damped reduced camera system
+    from the (reduced) Schur terms, its Jacobi-scaled Cholesky solve,
+    the landmark back-substitution and the retraction."""
+    H, b, _, Hfl, bl, _ = sys
     K = state.q.shape[0]
     KM = K * ES_SIZE
     Hd = H.reshape(KM, KM)
     Hfl2 = Hfl.reshape(KM, -1)
     Hd = Hd + lam * torch.diag(torch.diagonal(Hd))
-    inv_Hll = 1.0 / (Hll * (1.0 + lam))
-    S = Hd - (Hfl2 * inv_Hll[None, :]) @ Hfl2.T
-    rhs = -(b.reshape(-1) - Hfl2 @ (inv_Hll * bl))
+    S = Hd - S_lm
+    rhs = -(b.reshape(-1) - rhs_lm)
     # Jacobi scaling: the gauge prior puts ~1e16 on some diagonal
     # entries; unscaled Cholesky at that conditioning returns garbage
     d = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-30))
@@ -181,6 +239,19 @@ def _solve_from(sys, state: WindowState, lam) -> WindowState:
     df = torch.where(info == 0, d * y, float("nan"))
     dl = -(bl + Hfl2.T @ df) * inv_Hll
     return retract(state, df.reshape(K, ES_SIZE), dl)
+
+
+def _solve_from(sys, state: WindowState, lam, group=None) -> WindowState:
+    """One damped-GN step from an assembled system: Schur-eliminate
+    landmarks, Jacobi-scaled Cholesky solve of the reduced camera
+    system, back-substitute, retract. With `group`, the Schur terms are
+    summed over the landmark shards. A non-positive-definite system
+    gives a non-finite candidate (rejected by the LM test), never an
+    exception or a host sync."""
+    S_lm, rhs_lm, inv_Hll = _schur_landmarks(sys, lam)
+    if group is not None:
+        S_lm, rhs_lm = _all_reduce(group, S_lm, rhs_lm)
+    return _schur_frames(sys, state, lam, S_lm, rhs_lm, inv_Hll)
 
 
 def _lm_step(state: WindowState, data: WindowData, opts: SolveOptions, lam):
@@ -231,33 +302,51 @@ def _lm(state: WindowState, data: WindowData, opts: SolveOptions, assemble_fn,
 
 
 def solve_window_core(state: WindowState, data: WindowData,
-                      opts: SolveOptions = SolveOptions()):
+                      opts: SolveOptions = SolveOptions(), group=None):
     """LM with deferred accept/reject: one assembly per iteration; the
     candidate of iteration i is judged by iteration i+1's assembly, a
-    rejected step reuses the accepted system with more damping.
+    rejected step reuses the accepted system with more damping. With
+    `group` the landmark-indexed fields are this rank's shard (see the
+    module docstring).
 
     Returns (state, info) with info = {cost0, cost, cost_history (iters,),
     lambda}."""
-    return _lm(state, data, opts, assemble, _solve_from)
+    return _lm(state, data, opts, partial(assemble, group=group),
+               partial(_solve_from, group=group))
 
 
-def assemble_batch(state: WindowState, data: WindowData, opts: SolveOptions):
+def assemble_batch(state: WindowState, data: WindowData, opts: SolveOptions,
+                   group=None):
     """`assemble` over a batch of N windows (every field with a leading
     axis of N): K2 in one call over the batch, the other factors and the
-    elimination under `torch.func.vmap`."""
+    elimination under `torch.func.vmap`. With `group`, the stacked
+    (N, ...) partials of H, b and the cost are summed between the two
+    vmapped halves."""
     reproj = gram.reproj_factor_gram(state, data) if opts.use_reproj else None
-    return vmap(lambda s, d, r: assemble(s, d, opts, r))(state, data, reproj)
+    H, b, Hll, Hfl, bl, cost = vmap(
+        lambda s, d, r: _assemble_landmarks(s, d, opts, r))(state, data, reproj)
+    if group is not None:
+        H, b, cost = _all_reduce(group, H, b, cost)
+    return vmap(lambda y, s, d: _assemble_frames(y, s, d, opts))(
+        (H, b, Hll, Hfl, bl, cost), state, data)
 
 
-_solve_from_batch = vmap(_solve_from)
+def _solve_from_batch(sys, state: WindowState, lam, group=None) -> WindowState:
+    """`_solve_from` over a batch; with `group`, the stacked Schur terms
+    are summed between the two vmapped halves."""
+    S_lm, rhs_lm, inv_Hll = vmap(_schur_landmarks)(sys, lam)
+    if group is not None:
+        S_lm, rhs_lm = _all_reduce(group, S_lm, rhs_lm)
+    return vmap(_schur_frames)(sys, state, lam, S_lm, rhs_lm, inv_Hll)
 
 
 def solve_window_batch(state: WindowState, data: WindowData,
-                       opts: SolveOptions = SolveOptions()):
+                       opts: SolveOptions = SolveOptions(), group=None):
     """`solve_window_core` on a batch of N windows of one shape; every
     row keeps its own accept/reject and λ. info's entries lead with N
-    (cost_history is (iters, N))."""
-    return _lm(state, data, opts, assemble_batch, _solve_from_batch)
+    (cost_history is (iters, N)). `group` as in `solve_window_core`."""
+    return _lm(state, data, opts, partial(assemble_batch, group=group),
+               partial(_solve_from_batch, group=group))
 
 
 def solve_window(state: WindowState, data: WindowData,

@@ -2,10 +2,11 @@
 `xrslam_tpu/geometry/essential.py`).
 
 1. nullspace basis E(x,y,z) = x·E1 + y·E2 + z·E3 + E4 of the five
-   epipolar constraints (eigh of AᵀA);
+   epipolar constraints (eigh of AᵀA through LAPACK's `syevd` from
+   scipy, the routine the JAX package's CPU `eigh` calls);
 2. the ten cubic constraints (det E = 0, 2EEᵀE − tr(EEᵀ)E = 0) by
-   trivariate polynomial arithmetic — each product is one einsum
-   against a static (a-monomial, b-monomial, out-monomial) table;
+   trivariate polynomial arithmetic — each product sums its terms in
+   the JAX package's table order (a fixed order on every device);
 3. as C(z)·m(x,y) = 0, solutions need det C(z) = 0: a degree-10
    polynomial fitted from determinants at Chebyshev nodes, on the
    charts z and 1/z;
@@ -31,53 +32,79 @@ _DEG3 = [(3, 0, 0), (2, 1, 0), (1, 2, 0), (0, 3, 0), (2, 0, 1), (1, 1, 1),
          (0, 0, 1), (0, 0, 0)]
 
 
-def _mul_table(alist, blist, outlist) -> np.ndarray:
+def _mul_terms(alist, blist, outlist) -> np.ndarray:
+    """(len(outlist), M): for each output monomial, the flat indices
+    i·len(blist) + j of the products a_i·b_j that make it, in the JAX
+    package's table order ((i, j) lexicographic), padded with the index
+    of a zero."""
     idx = {m: i for i, m in enumerate(outlist)}
-    t = np.zeros((len(alist), len(blist), len(outlist)))
+    terms = [[] for _ in outlist]
     for i, a in enumerate(alist):
         for j, b in enumerate(blist):
-            t[i, j, idx[(a[0] + b[0], a[1] + b[1], a[2] + b[2])]] = 1.0
-    return t
+            terms[idx[(a[0] + b[0], a[1] + b[1], a[2] + b[2])]].append(i * len(blist) + j)
+    pad, width = len(alist) * len(blist), max(map(len, terms))
+    return np.array([t + [pad] * (width - len(t)) for t in terms])
 
 
-_T11 = _mul_table(_DEG1, _DEG1, _DEG2)
-_T21 = _mul_table(_DEG2, _DEG1, _DEG3)
+_T11 = _mul_terms(_DEG1, _DEG1, _DEG2)
+_T21 = _mul_terms(_DEG2, _DEG1, _DEG3)
 _XY_MONOS = [(3, 0), (2, 1), (1, 2), (0, 3), (2, 0), (1, 1), (0, 2),
              (1, 0), (0, 1), (0, 0)]
-_C_TABLE = np.zeros((len(_DEG3), 10, 4))
+# C(z)'s layout: per (xy-monomial column, z power) the DEG3 coefficient
+# it takes, or len(_DEG3) (a zero)
+_C_TERMS = np.full((10, 4), len(_DEG3))
 for _m, (_i, _j, _k) in enumerate(_DEG3):
-    _C_TABLE[_m, _XY_MONOS.index((_i, _j)), _k] = 1.0
+    _C_TERMS[_XY_MONOS.index((_i, _j)), _k] = _m
 
 
 @functools.lru_cache(maxsize=None)
-def _const(name: str, dtype, device) -> torch.Tensor:
-    """Static tables as tensors, once per (dtype, device)."""
-    arr = {"T11": _T11, "T21": _T21, "C": _C_TABLE}[name]
-    return torch.as_tensor(arr, dtype=dtype, device=device)
+def _const(name: str, device) -> torch.Tensor:
+    """Static index tables as tensors, once per device."""
+    arr = {"T11": _T11, "T21": _T21, "C": _C_TERMS}[name]
+    return torch.as_tensor(arr, dtype=torch.long, device=device)
+
+
+def _with_zero(x: torch.Tensor) -> torch.Tensor:
+    """x (...,n) -> (...,n+1), a zero appended (the tables' padding)."""
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], dim=-1)
+
+
+def _pmul(a, b, name: str):
+    """Polynomial product a (...,Na) × b (...,Nb) -> (...,N_out): each
+    output coefficient sums its products a_i·b_j in the table's order,
+    as the JAX package's `_pmul` does. An einsum against a 0/1 table
+    would sum them in the order of the library's kernel, which on the
+    CPU follows the processor."""
+    prods = _with_zero((a[..., :, None] * b[..., None, :]).flatten(-2))
+    g = prods[..., _const(name, a.device)]              # (...,N_out,M)
+    out = g[..., 0]
+    for m in range(1, g.shape[-1]):
+        out = out + g[..., m]
+    return out
 
 
 def _p11(a, b):
     """Degree-1 x degree-1 polynomial product (...,4),(...,4)->(...,10)."""
-    return torch.einsum("...i,...j,ijk->...k", a, b,
-                        _const("T11", a.dtype, a.device))
+    return _pmul(a, b, "T11")
 
 
 def _p21(a, b):
     """Degree-2 x degree-1 product (...,10),(...,4)->(...,20)."""
-    return torch.einsum("...i,...j,ijk->...k", a, b,
-                        _const("T21", a.dtype, a.device))
+    return _pmul(a, b, "T21")
 
 
 def _constraint_polys(basis: torch.Tensor) -> torch.Tensor:
     """The ten cubic constraints as (...,10,20) coefficient arrays;
     basis (...,9,4) holds E1..E4 (row-major 3×3) as columns."""
     Ep = basis.reshape(basis.shape[:-2] + (3, 3, 4))
-    T11 = _const("T11", basis.dtype, basis.device)
-    T21 = _const("T21", basis.dtype, basis.device)
-    EEt = torch.einsum("...ika,...jkb,abc->...ijc", Ep, Ep, T11)  # (...,3,3,10)
+    # EEt[i][j] = Σ_k E[i,k]·E[j,k] (degree 2); the sums over k in order
+    t = _p11(Ep[..., :, None, :, :], Ep[..., None, :, :, :])     # (...,i,j,k,10)
+    EEt = t[..., 0, :] + t[..., 1, :] + t[..., 2, :]
     trace = EEt[..., 0, 0, :] + EEt[..., 1, 1, :] + EEt[..., 2, 2, :]
-    rows = (torch.einsum("...ika,...kjb,abc->...ijc", EEt, Ep, T21)
-            - 0.5 * torch.einsum("...a,...ijb,abc->...ijc", trace, Ep, T21))
+    # (EEt·E)[i][j] − ½·trace·E[i][j] (degree 3)
+    t = _p21(EEt[..., :, None, :, :], Ep.transpose(-3, -2)[..., None, :, :, :])
+    rows = (t[..., 0, :] + t[..., 1, :] + t[..., 2, :]
+            - 0.5 * _p21(trace[..., None, None, :], Ep))
     rows = rows.reshape(rows.shape[:-3] + (9, 20))
 
     def p1(i, j):
@@ -93,17 +120,56 @@ def _constraint_polys(basis: torch.Tensor) -> torch.Tensor:
 
 
 def _c_of_z(polys: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """C(z): polys (...,10,20), z (...,S) -> (...,S,10,10)."""
-    zp = torch.stack([torch.ones_like(z), z, z * z, z * z * z], dim=-1)
-    return torch.einsum("...rm,mcp,...sp->...src", polys,
-                        _const("C", polys.dtype, polys.device), zp)
+    """C(z): polys (...,10,20), z (...,S) -> (...,S,10,10); each entry
+    Σ_p coefficient·z^p, summed over the powers in order."""
+    g = _with_zero(polys)[..., _const("C", polys.device)][..., None, :, :, :]
+    z = z[..., :, None, None]                           # (...,S,1,1)
+    out = g[..., 0] + g[..., 1] * z
+    zp = z
+    for p in (2, 3):
+        zp = zp * z
+        out = out + g[..., p] * zp
+    return out
+
+
+def _eigh_vectors_lapack(a: torch.Tensor) -> torch.Tensor:
+    """Eigenvectors (...,n,n) of symmetric matrices on the CPU by scipy's
+    LAPACK `syevd` (lower triangle), one matrix at a time: the routine
+    that the JAX package's CPU `eigh` calls (jaxlib takes its LAPACK
+    from scipy.linalg.cython_lapack)."""
+    from scipy.linalg import lapack
+
+    m = a.detach().numpy().reshape((-1,) + a.shape[-2:])
+    syevd = lapack.get_lapack_funcs("syevd", (m,))
+    v = np.empty_like(m)
+    for i in range(m.shape[0]):
+        _, v[i], _ = syevd(m[i], compute_v=1, lower=1)
+    return torch.from_numpy(v.reshape(a.shape))
 
 
 def nullspace_basis(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """(...,5,3) points -> (...,9,4) nullspace of x2ᵀ E x1 = 0."""
+    """(...,5,3) points -> (...,9,4) nullspace of x2ᵀ E x1 = 0.
+
+    AᵀA has a (numerically) 4-fold zero eigenvalue, so the basis an
+    eigensolver returns is rounding noise: on 4096 such matrices MKL's
+    `syevd` (torch's CPU `eigh`), cuSOLVER's and scipy's LAPACK gave no
+    two bases alike (an Intel Xeon host). The real roots the bisection
+    finds follow the basis, and now and then a hypothesis gains or
+    loses one, which can move a RANSAC or PARSAC outcome. So on every
+    device the port takes the basis from the one routine the JAX
+    package's CPU `eigh` calls, LAPACK's `syevd` through scipy: the
+    CPU drives agree with the JAX package's, and the card's with the
+    CPU's. On the card that costs one copy of the (...,9,9) stack to
+    the host per 5-point solve. AᵀA itself is summed in a fixed order
+    (a CPU matmul follows MKL's per-CPU kernel)."""
     A = torch.einsum("...ni,...nj->...nij", x2, x1).reshape(
         x1.shape[:-2] + (5, 9))
-    _, v = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    # AᵀA summed over the five constraints in a fixed order: a CPU matmul
+    # goes through MKL, whose kernel, and so its rounding, follows the CPU
+    ata = A[..., 0, :, None] * A[..., 0, None, :]
+    for n in range(1, 5):
+        ata = ata + A[..., n, :, None] * A[..., n, None, :]
+    v = _eigh_vectors_lapack(ata.cpu()).to(ata.device)
     return v[..., :, 0:4]
 
 

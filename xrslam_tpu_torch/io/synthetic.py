@@ -1,8 +1,9 @@
 """Synthetic VIO scene: smooth analytic trajectory, landmark cloud and
 ideal IMU, a rigidly-moving object and the projection of both into the
-camera (port of `wave_scene`, `euler_consistent`, `moving_object`,
-`bearings_of_points` and `bearings_of` from `xrslam_tpu/io/synthetic.py`),
-and `reproj_window`, a seeded window for the reprojection factors alone.
+camera (port of `circle_scene`, `wave_scene`, `euler_consistent`,
+`moving_object`, `bearings_of_points`, `bearings_of`, `window_problem`
+and `demo_window_problem` from `xrslam_tpu/io/synthetic.py`), and
+`reproj_window`, a seeded window for the reprojection factors alone.
 
 Velocity, acceleration and body rate come from `torch.func.jacfwd` of
 the analytic pose, as the JAX package takes them from `jax.jacfwd`.
@@ -11,7 +12,15 @@ The landmarks and the object's points of the JAX scenes are drawn with
 `moving_object` take them as `landmarks=` / `local=`, and the draws the
 drives use are committed in `io/data` (`wave_seed3_l500.npy`,
 `wave_seed0_l96.npy`, the multi-sequence drive's `wave_seed{5,...}_l500.npy`;
-`object_seed7_n80.npy`, the object's unit draw).
+`object_seed7_n80.npy`, the object's unit draw). `circle_scene` takes
+its landmarks as `landmarks=` too; its committed float64 draws at seed 0
+(`circle_seed0_l{24,248,376,2040}.npy`) are the sizes that
+`demo_window_problem` is called with by `tools/run_scaling.py` (L = 32,
+256) and `chip_smoke.py` (K=12, L=384 and K=32, L=2048). Every committed
+draw is written from the JAX package by
+`PYTHONPATH=. python tests/test_torch_convert.py --write` (wave and
+object) and `PYTHONPATH=. python tests/test_torch_synthetic.py --write`
+(circle).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from torch.func import jacfwd, vmap
 
 from ..geometry import lie
 from ..imu import preintegration as pre
+from ..utils.tree import tree_map
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 # the bench scene, the dynamic-object scene's static landmarks and the
@@ -36,6 +46,8 @@ DEFAULT_LANDMARKS = {(3, 500): "wave_seed3_l500.npy",
                         for s in (5, 11, 32, 7, 13, 21, 29)}}
 # moving_object's jax.random.uniform draw on [0, 1), keyed (seed, n_points)
 DEFAULT_OBJECT_DRAWS = {(7, 80): "object_seed7_n80.npy"}
+# circle_scene's float64 landmarks, keyed (seed, n_landmarks)
+DEFAULT_CIRCLE_LANDMARKS = {(0, n): f"circle_seed0_l{n}.npy" for n in (24, 248, 376, 2040)}
 
 
 class Scene(NamedTuple):
@@ -63,6 +75,43 @@ def committed_landmarks(seed: int, n_landmarks: int) -> np.ndarray:
     """The JAX package's landmark draw for (seed, n_landmarks), read
     from io/data; raises for a draw that is not committed."""
     return _committed(DEFAULT_LANDMARKS, seed, n_landmarks, "landmark")
+
+
+def circle_scene(n_frames: int = 32, n_landmarks: int = 64, cam_hz: float = 20.0,
+                 imu_hz: float = 200.0, radius: float = 3.0, omega: float = 0.6,
+                 height: float = 1.5, seed: int = 0, landmarks=None,
+                 dtype=torch.float64) -> Scene:
+    """Body flies a circle at constant angular rate, x-axis tangent,
+    z-axis up; landmarks in a shell around the circle (by default the
+    JAX package's float64 draw for (seed, n_landmarks), from io/data).
+    A constant twist: scale and gravity are unobservable to the VI
+    initializer, so this is a solver fixture, not an end-to-end scene."""
+    g = torch.tensor([0.0, 0.0, -pre.GRAVITY_NOMINAL], dtype=dtype)
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=dtype)
+    ts = torch.arange(n_frames, dtype=dtype) / cam_hz
+    th = omega * ts
+    zero = torch.zeros_like(th)
+    qs = lie.expmap(ez * (th + math.pi / 2)[:, None])
+    ps = torch.stack([radius * torch.cos(th), radius * torch.sin(th),
+                      torch.full_like(th, height)], dim=-1)
+    vs = torch.stack([-radius * omega * torch.sin(th),
+                      radius * omega * torch.cos(th), zero], dim=-1)
+
+    spf = int(imu_hz / cam_hz)
+    imu_t = ts[:, None] + torch.arange(spf, dtype=dtype)[None, :] / imu_hz
+    th_i = omega * imu_t
+    a_w = torch.stack([-radius * omega ** 2 * torch.cos(th_i),
+                       -radius * omega ** 2 * torch.sin(th_i),
+                       torch.zeros_like(th_i)], dim=-1)
+    q_i = lie.expmap(ez * (th_i + math.pi / 2)[..., None])
+    imu_a = lie.quat_rotate_inv(q_i, a_w - g)
+    imu_w = torch.tensor([0.0, 0.0, omega], dtype=dtype).expand(imu_a.shape).clone()
+    if landmarks is None:
+        landmarks = _committed(DEFAULT_CIRCLE_LANDMARKS, seed, n_landmarks,
+                               "circle landmark")
+    landmarks = torch.as_tensor(np.asarray(landmarks), dtype=dtype)
+    return Scene(t=ts, q=qs, p=ps, v=vs, landmarks=landmarks, imu_t=imu_t,
+                 imu_w=imu_w, imu_a=imu_a)
 
 
 def wave_scene(n_frames: int = 60, n_landmarks: int = 500, cam_hz: float = 20.0,
@@ -255,3 +304,96 @@ def reproj_window(K: int, L: int, seed: int = 0, n_guard: int = 0,
         landmark_mask=T(lm, torch.bool),
         fix_landmark=T(rng.uniform(size=L) < 0.05, torch.bool))
     return state, data
+
+
+def window_problem(scene: Scene, frame_idx, L: int = 64, q_bc=None, p_bc=None,
+                   reproj_weight: float = 400.0, noise=None, dtype=torch.float64,
+                   device=None):
+    """Ground-truth (WindowState, WindowData) of the scene frames
+    `frame_idx` with L landmark slots (the scene's landmarks first): each
+    landmark seen in two or more of the frames is anchored at the first,
+    its inverse depth the anchor camera's 1/range; the frames are
+    chained by preintegration. Built on the CPU, then moved to
+    `device`."""
+    from ..estimation.window import MargPrior, WindowData, WindowState
+
+    noise = noise or pre.ImuNoise.isotropic(1e-4, 1e-2, 1e-8, 1e-6, dtype=dtype)
+    frame_idx = torch.as_tensor(list(frame_idx), dtype=torch.long)
+    K = frame_idx.shape[0]
+    q_bc = lie.quat_identity(dtype=dtype) if q_bc is None else torch.as_tensor(q_bc).to(dtype)
+    p_bc = torch.zeros(3, dtype=dtype) if p_bc is None else torch.as_tensor(p_bc).to(dtype)
+
+    bearings, mask = bearings_of(scene, q_bc, p_bc, frame_idx)
+    n_lm = scene.landmarks.shape[0]
+    if n_lm > L:
+        raise ValueError(f"{n_lm} landmarks do not fit {L} slots")
+
+    seen = mask.numpy()
+    ref_idx = np.zeros(L, dtype=np.int32)
+    lm_mask = np.zeros(L, dtype=bool)
+    for l in range(n_lm):
+        obs = np.nonzero(seen[:, l])[0]
+        if len(obs) >= 2:
+            ref_idx[l] = obs[0]
+            lm_mask[l] = True
+
+    q_w, p_w = scene.q[frame_idx], scene.p[frame_idx]
+    x_b = lie.quat_rotate_inv(q_w[:, None, :], scene.landmarks[None] - p_w[:, None, :])
+    x_c = lie.quat_rotate_inv(q_bc, x_b - p_bc)
+    rng = torch.linalg.vector_norm(x_c, dim=-1).numpy()       # (K, n_lm)
+    invd = np.zeros(L)
+    for l in range(n_lm):
+        if lm_mask[l]:
+            invd[l] = 1.0 / float(rng[ref_idx[l], l])
+
+    bearings_p = torch.zeros((K, L, 3), dtype=dtype)
+    bearings_p[:, :n_lm] = bearings.to(dtype)
+    mask_p = torch.zeros((K, L), dtype=torch.bool)
+    mask_p[:, :n_lm] = mask
+
+    zero = torch.zeros(3, dtype=dtype)
+    deltas = [pre.PreintDelta.identity(dtype=dtype)]
+    for j in range(1, K):
+        i0, i1 = int(frame_idx[j - 1]), int(frame_idx[j])
+        deltas.append(pre.integrate(
+            scene.imu_t[i0:i1].reshape(-1).to(dtype),
+            scene.imu_w[i0:i1].reshape(-1, 3).to(dtype),
+            scene.imu_a[i0:i1].reshape(-1, 3).to(dtype),
+            scene.t[i1].to(dtype), zero, zero, noise))
+    preint = pre.PreintDelta(*(torch.stack(xs) for xs in zip(*deltas)))
+
+    state = WindowState(q=scene.q[frame_idx].to(dtype), p=scene.p[frame_idx].to(dtype),
+                        v=scene.v[frame_idx].to(dtype),
+                        bg=torch.zeros((K, 3), dtype=dtype),
+                        ba=torch.zeros((K, 3), dtype=dtype),
+                        inv_depth=torch.as_tensor(invd, dtype=dtype))
+    preint_mask = torch.ones((K,), dtype=torch.bool)
+    preint_mask[0] = False
+    data = WindowData(
+        q_bc=q_bc.expand(K, 4).clone(), p_bc=p_bc.expand(K, 3).clone(),
+        q_bi=lie.quat_identity((K,), dtype=dtype), p_bi=torch.zeros((K, 3), dtype=dtype),
+        bearings=bearings_p, obs_mask=mask_p, ref_idx=torch.as_tensor(ref_idx),
+        sqrt_inv_cov2=(reproj_weight * torch.eye(2, dtype=dtype)).expand(K, 2, 2).clone(),
+        preint=preint, preint_mask=preint_mask,
+        bg_lin=torch.zeros((K, 3), dtype=dtype), ba_lin=torch.zeros((K, 3), dtype=dtype),
+        frame_mask=torch.ones((K,), dtype=torch.bool),
+        fix_pose=torch.zeros((K,), dtype=torch.bool),
+        fix_motion=torch.zeros((K,), dtype=torch.bool),
+        landmark_mask=torch.as_tensor(lm_mask), fix_landmark=torch.zeros((L,), dtype=torch.bool),
+        marg=MargPrior.zeros(K, L, dtype=dtype), use_marg=torch.tensor(False))
+    return tree_map(lambda x: x.to(device), state), tree_map(lambda x: x.to(device), data)
+
+
+def demo_window_problem(K: int, L: int, dtype=torch.float64, stride: int = 2,
+                        n_lm=None, device=None):
+    """The benchmark and scaling fixture: a `circle_scene` window of K
+    frames `stride` apart with n_lm = L - 8 landmarks by default (a
+    committed draw) and the standard camera extrinsics
+    (`tools/run_scaling.py`, `chip_smoke.py`)."""
+    n_lm = n_lm or (L - 8)
+    scene = euler_consistent(circle_scene(n_frames=K * stride + 1, n_landmarks=n_lm,
+                                          dtype=dtype))
+    q_bc = lie.expmap(torch.tensor([-math.pi / 2, 0.0, 0.0], dtype=dtype))
+    p_bc = torch.tensor([0.02, -0.01, 0.03], dtype=dtype)
+    return window_problem(scene, range(0, K * stride, stride), L=L, q_bc=q_bc,
+                          p_bc=p_bc, dtype=dtype, device=device)
