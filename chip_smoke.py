@@ -69,6 +69,27 @@
    fails unless at least 10 frames were tracked, the PnP pose was
    published on at least half of them and the camera-rate ATE is
    <= 0.25 m;
+7b. drives the reference's mobile profile: the same wave scene (seed 3,
+   500 landmarks) written to disk at the iPhone 12's 640x480, focal 478
+   (`configs/iphone12_sensor.yaml`), 60 frames, played by
+   `tools.run_dataset.run_sequence` with the shipped
+   `configs/iphone_slam.yaml` (window 5, the backend every third frame,
+   visual PnP, 300 detections on the tracker's 256 slots, the solver time
+   budget `time_limit: 0.1`), the rendered device file and the rendered
+   slam file's initializer section (the profile sets none; the
+   reference's defaults need 50 tracks across 35 frames, which the scene
+   does not keep); prints the card line, frames/s, tracked, the
+   camera-rate ATE (the published body pose against the ground-truth
+   body: the profile's q_bo/p_bo moves only the localizer's output),
+   each solve variant's time per iteration, the iteration counts chosen
+   after calibration, the budget's device waits and each chain's mean
+   time before and after calibration against the 0.1 s budget; fails
+   unless the kernels launched as in 5, every calibrated variant waited
+   on the device exactly 3 times, every chain solve took the counts the
+   budget's rule (restated here) gives for its tracker's estimates, one
+   solve at least ran after calibration, >= 10 frames were tracked, the
+   PnP pose was published on half of them at least and the ATE is
+   <= 0.25 m;
 8. drives the dynamic-object scene (60 frames, 96 static landmarks and
    an 80-point moving object, 0.5 px noise, bearings through the
    `SyntheticTracker`, PARSAC on) at eight `Config.random` seeds, the
@@ -153,8 +174,8 @@ Beside these:
 - the ROS node (`tools.ros_node.RosVioNode`) on the card, the dataset's
   first 20 frames with the distortion flag on: every image drained into
   the engine, each remapped by the native runtime;
-- after phase 12, `tools.multiseq` at 752x480: 4 sequences (seeds 3, 5,
-  11, 32) of 45 frames, sequential then batched (`solve_chained_batch`,
+- after phase 12, `tools.multiseq` at 752x480: 2 sequences (seeds 3 and
+  5) of 45 frames, sequential then batched (`solve_chained_batch`,
   K2 over the batch); fails unless every sequence in both modes tracked
   half of its frames after frame 28 at ATE <= 0.25 m, a K2 call served
   more than one window, and the first batched flush's windows solved
@@ -251,6 +272,22 @@ BENCH_MIN_TRACKED_SHARE = 0.6
 # the default), and the chain itself is held to the CPU on the same
 # draws (`chain_check`).
 OBJECT_SEEDS = tuple(range(648, 656))
+# phase 7b, the mobile profile: the shipped slam file, the initializer
+# section of the rendered scene's own slam file (the profile sets none),
+# phase 7's limits
+MOBILE_FRAMES = 60
+MOBILE_MIN_TRACKED = 10
+MOBILE_SLAM_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                "iphone_slam.yaml")
+MOBILE_INITIALIZER_FIELDS = (
+    "initializer_keyframe_num", "initializer_keyframe_gap", "initializer_min_matches",
+    "initializer_min_parallax", "initializer_min_triangulation",
+    "initializer_min_landmarks")
+# the solver time budget's rule, restated from the JAX package
+# (xrslam_tpu/core/sliding_window.py:212-242): the iteration counts a
+# clamped solve may take, and the device waits that calibrate a variant
+BUDGET_LADDER = (1, 2, 3, 5, 8, 15, 30)
+CALIB_SYNCS = 3
 OBJECT_MIN_PASSED = 1
 OBJECT_TIMEOUT_S = 600
 
@@ -1045,6 +1082,213 @@ def visual_pnp_phase(dev, seq) -> dict:
     if 2 * res["pnp_frames"] < res["frames_tracked"]:
         fail(f"visual-PnP drive: the PnP pose was published on {res['pnp_frames']} "
              f"of {res['frames_tracked']} tracked frames (< half)")
+    return res
+
+
+def budgeted_iterations(limit: float, est, base: int, share: int = 0) -> int:
+    """The iteration count the solver time budget gives a solve, or the
+    second share of a chained solve whose first share takes `share`
+    iterations, when its variant was timed at `est` seconds an
+    iteration: the ladder value at or below max(1, int(limit / est) -
+    share) where that is below `base`, else `base`."""
+    if not est or not 0 < limit < 1.0e5:
+        return base
+    fit = max(1, int(limit / est) - share)
+    if fit >= base:
+        return base
+    return max([v for v in BUDGET_LADDER if v <= fit] or [1])
+
+
+@contextlib.contextmanager
+def budget_recording():
+    """Records, while the block runs, every fused chain solve of the
+    sliding window: its variant, its two iteration counts, the estimates
+    its tracker held when it was budgeted and the host time of its step
+    (extraction, solve, write-back); and the budget's device waits by
+    tracker and variant."""
+    from xrslam_tpu_torch.core import sliding_window as sw
+
+    cls = sw.SlidingWindowTracker
+    rec = {"solves": [], "waits": {}, "trackers": {}}
+    current = {}
+    methods = {n: getattr(cls, n) for n in
+               ("_fused_subframe_step", "_fused_keyframe_step", "_note_solve")}
+    solvers = {n: getattr(sw, n) for n in ("solve_chained", "solve_keyframe_chain")}
+
+    def step(fn):
+        def timed(self, *args):
+            rec["trackers"][id(self)] = self
+            current.update(swt=self, est=dict(self._iter_seconds), solve=None)
+            t0 = time.perf_counter()
+            fn(self, *args)
+            if current["solve"] is not None:
+                current["solve"]["seconds"] = time.perf_counter() - t0
+        return timed
+
+    def solve(fn, keyframe: bool):
+        def recorded(*args, **kwargs):
+            l_opts, s_opts = args[2], args[5]
+            swt = current["swt"]
+            base = "refine" if keyframe else (
+                "subwindow_rot" if s_opts.use_rotation else "subwindow")
+            one = {"variant": "kf_chain" if keyframe else "chained:" + base,
+                   "base": base, "l": l_opts.iterations, "s": s_opts.iterations,
+                   "est": current["est"], "tracker": id(swt),
+                   "limit": swt.config.solver_time_limit,
+                   "iteration_limit": swt.config.solver_iteration_limit}
+            current["solve"] = one
+            rec["solves"].append(one)
+            return fn(*args, **kwargs)
+        return recorded
+
+    def note(self, variant, result, iterations, t0):
+        rec["trackers"][id(self)] = self
+        before = self.stats["budget_syncs"]
+        methods["_note_solve"](self, variant, result, iterations, t0)
+        key = (id(self), variant)
+        rec["waits"][key] = rec["waits"].get(key, 0) + self.stats["budget_syncs"] - before
+
+    cls._fused_subframe_step = step(methods["_fused_subframe_step"])
+    cls._fused_keyframe_step = step(methods["_fused_keyframe_step"])
+    cls._note_solve = note
+    sw.solve_chained = solve(solvers["solve_chained"], False)
+    sw.solve_keyframe_chain = solve(solvers["solve_keyframe_chain"], True)
+    try:
+        yield rec
+    finally:
+        for n, fn in methods.items():
+            setattr(cls, n, fn)
+        for n, fn in solvers.items():
+            setattr(sw, n, fn)
+
+
+def check_budget(rec: dict, what: str) -> dict:
+    """Fail unless every recorded chain solve took the iteration counts
+    the budget's rule gives for the estimates its tracker held, at least
+    one solve ran after its variant's calibration, and every calibrated
+    variant waited on the device exactly CALIB_SYNCS times. Returns the
+    per-variant summary."""
+    after = []
+    for one in rec["solves"]:
+        est, lim, base = one["est"], one["limit"], one["iteration_limit"]
+        want_l = budgeted_iterations(lim, est.get("localize"), base)
+        want_s = budgeted_iterations(lim, est.get(one["variant"]),
+                                     budgeted_iterations(lim, est.get(one["base"]), base),
+                                     want_l)
+        if (one["l"], one["s"]) != (want_l, want_s):
+            fail(f"{what}: a {one['variant']} solve took {one['l']} + {one['s']} "
+                 f"iterations where the budget gives {want_l} + {want_s} (estimates "
+                 f"{est})")
+        if one["variant"] in est:
+            after.append(one)
+    if not after:
+        fail(f"{what}: no chain solve ran after its variant's calibration "
+             f"({len(rec['solves'])} solves)")
+    def mean_ms(solves):
+        ts = [s["seconds"] for s in solves if "seconds" in s]
+        return 1e3 * sum(ts) / len(ts) if ts else None
+
+    out = {}
+    for (tid, variant), waits in sorted(rec["waits"].items(), key=str):
+        swt = rec["trackers"][tid]
+        calibrated = variant in swt._iter_seconds
+        if calibrated and waits != CALIB_SYNCS:
+            fail(f"{what}: calibrated variant {variant} waited on the device {waits} "
+                 f"times (!= {CALIB_SYNCS})")
+        mine = [s for s in rec["solves"] if s["variant"] == variant and s["tracker"] == tid]
+        clamped = [s for s in mine if variant in s["est"]]
+        before = [s for s in mine if variant not in s["est"]]
+        out[variant] = {
+            "est_ms_per_iter": 1e3 * swt._iter_seconds[variant] if calibrated else None,
+            "samples_ms": [1e3 * x for x in swt._solve_samples.get(variant, [])],
+            "budget_syncs": waits, "solves": len(mine),
+            "iterations_after": sorted({(s["l"], s["s"]) for s in clamped}),
+            "solves_after": len(clamped),
+            "chain_ms_before": mean_ms(before), "chain_ms_after": mean_ms(clamped)}
+    return out
+
+
+def mobile_phase(dev, out_dir: str, n_frames: int = MOBILE_FRAMES, width: int = 640,
+                 height: int = 480, focal: float = 478.0,
+                 min_tracked: int = MOBILE_MIN_TRACKED) -> dict:
+    """Phase 7b: the reference's mobile profile end to end. The wave
+    scene rendered to disk at the iPhone 12's 640x480 and focal 478
+    (configs/iphone12_sensor.yaml) and played by
+    `tools.run_dataset.run_sequence` with the shipped
+    configs/iphone_slam.yaml (window 5, backend every 3rd frame, visual
+    PnP, 300 detections, a 0.1 s solver time budget), the rendered
+    device file, and the rendered slam file's initializer section (the
+    profile sets none, and the reference's defaults need 50 tracks across
+    35 frames, which this scene does not keep). Fails unless the kernels
+    ran as in 5, >= `min_tracked` frames tracked, the PnP pose was
+    published on half of them, the camera-rate ATE (the published body
+    pose against the ground-truth body; the profile's q_bo/p_bo moves
+    only the localizer's output) is <= 0.25 m, and the budget held
+    (`check_budget`)."""
+    import torch
+
+    from xrslam_tpu_torch import native
+    from xrslam_tpu_torch.config import load_config
+    from xrslam_tpu_torch.frontend import image as img_ops
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools import run_dataset
+    from xrslam_tpu_torch.tools.make_dataset import render_dataset
+
+    card = card_line() if torch.device(dev).type == "cuda" else None
+    paths = render_dataset(out_dir, n_frames=n_frames, n_landmarks=500, width=width,
+                           height=height, focal=focal, seed=3)
+    scene_cfg = load_config(paths["slam_yaml"], paths["device_yaml"])
+    cfg = load_config(MOBILE_SLAM_YAML, paths["device_yaml"]).replace(**{
+        k: getattr(scene_cfg, k) for k in MOBILE_INITIALIZER_FIELDS})
+    build.reset_launch_counts()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    with counting(klt, "track_keypoints") as pairs, \
+            counting(img_ops, "scharr") as scharr_calls, budget_recording() as rec:
+        ts, _, ps, slam = run_dataset.run_sequence("euroc://" + paths["root"], cfg,
+                                                   async_reader=False, device=dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    res = {"card": card, "frames": n_frames, "frames_tracked": len(ts),
+           "seconds": seconds, "frames_per_s": n_frames / seconds,
+           "ate_m": run_dataset.evaluate_ate(paths["root"], ts, ps),
+           "pnp_frames": slam.pipeline.pnp_frames,
+           "launches": {k.name: k.launches for k in build.KERNELS},
+           "entry_launches": {k.name: dict(k.entry_launches) for k in build.KERNELS},
+           "frame_pairs_tracked": pairs[0], "scharr_calls": scharr_calls[0],
+           "solver_time_limit": cfg.solver_time_limit,
+           "stage_ms": {k: v * 1e3 for k, v in sorted(slam.times.means().items())}}
+    print(f"mobile-profile drive ({width}x{height}, focal {focal}, {n_frames} frames, "
+          f"configs/iphone_slam.yaml; card {card}): {res['frames_tracked']}/{n_frames} "
+          f"tracked, PnP pose published on {res['pnp_frames']} frames, camera-rate ATE "
+          f"{res['ate_m']:.4f} m, {res['frames_per_s']:.3f} frames/s, launches "
+          f"{res['launches']} over {res['frame_pairs_tracked']} frame pairs", flush=True)
+    print("mobile-profile drive stage means (ms): " + json.dumps(
+        {k: round(v, 2) for k, v in res["stage_ms"].items()}), flush=True)
+    check_image_path(res, "mobile-profile drive", min_tracked=min_tracked)
+    check_ate(res, "mobile-profile drive")
+    if 2 * res["pnp_frames"] < res["frames_tracked"]:
+        fail(f"mobile-profile drive: the PnP pose was published on {res['pnp_frames']} "
+             f"of {res['frames_tracked']} tracked frames (< half)")
+    res["budget"] = check_budget(rec, "mobile-profile drive")
+    res["budget_syncs"] = sum(t.stats["budget_syncs"] for t in rec["trackers"].values())
+    if res["budget_syncs"] != sum(v["budget_syncs"] for v in res["budget"].values()):
+        fail(f"mobile-profile drive: {res['budget_syncs']} budget syncs counted, "
+             f"{res['budget']} recorded")
+    limit_ms = 1e3 * cfg.solver_time_limit
+    for variant, b in res["budget"].items():
+        def ms(x):
+            return "none" if x is None else f"{x:.1f}"
+        print(f"solver time budget {variant}: estimate {ms(b['est_ms_per_iter'])} ms an "
+              f"iteration (samples {[round(x, 2) for x in b['samples_ms']]}), "
+              f"{b['budget_syncs']} device waits; {b['solves']} solves, {b['solves_after']} "
+              f"after calibration at iterations (localize, second share) "
+              f"{b['iterations_after']}; chain mean {ms(b['chain_ms_before'])} ms before "
+              f"calibration, {ms(b['chain_ms_after'])} ms after, against the "
+              f"{limit_ms:.0f} ms budget", flush=True)
+    print(f"mobile-profile drive: budget_syncs {res['budget_syncs']}", flush=True)
     return res
 
 
@@ -1869,7 +2113,9 @@ K_SUB = 11
 K2_BATCH = 4
 CAPI_FRAMES = 45  # cut from 60 for the script's time (PERF.md section 4)
 ROS_FRAMES = 20
-MULTISEQ_N = 4
+# cut from 4 when the script took 980.3 s on a slower host, past the
+# 897.8 s it took before phase 7b (PERF.md section 4)
+MULTISEQ_N = 2
 MULTISEQ_FRAMES = 45  # cut from 60 for the script's time (PERF.md section 4)
 MULTISEQ_TOL = 1e-9
 # the main drive's tracker per frame with the Python spacing filter (PERF.md
@@ -2251,7 +2497,7 @@ def multiseq_phase(dev, out_dir: str, n_seq: int = MULTISEQ_N,
                    frames: int = MULTISEQ_FRAMES, width: int = 752, height: int = 480,
                    focal: float = 458.0, seeds=None) -> dict:
     """`tools.multiseq` at the main path's geometry: `n_seq` sequences
-    (seeds 3, 5, 11, 32), `frames` frames each, sequential then batched
+    (the first of seeds 3, 5, 11, 32), `frames` frames each, sequential then batched
     (the brokered `solve_chained_batch`, K2 over the batch). Fails unless
     every sequence in both modes tracked at least half of its frames
     after the backend's start at ATE <= 0.25 m, the batched mode made a
@@ -2715,14 +2961,23 @@ def main(argv=None) -> None:
           f"{time.perf_counter() - t0:.1f} s ({os.path.basename(info['library'])})",
           flush=True)
 
-    k1_level = klt_phase(dev)
-    k1 = klt_track_phase(dev)
-    k2_gram = gram_phase(dev)
-    k2 = factor_gram_phase(dev)
-    k2_batch = factor_gram_batch_phase(dev)
-    shard = sharded_model_phase(dev)
-    scaling = scaling_phase(dev)
-    repeat = parsac_repeat_phase(dev)
+    # each phase's seconds on the host clock, to choose cuts by
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    k1_level = phase("klt_level", klt_phase, dev)
+    k1 = phase("klt_track", klt_track_phase, dev)
+    k2_gram = phase("reproj_gram", gram_phase, dev)
+    k2 = phase("reproj_factor_gram", factor_gram_phase, dev)
+    k2_batch = phase("reproj_factor_gram_batch", factor_gram_batch_phase, dev)
+    shard = phase("sharded", sharded_model_phase, dev)
+    scaling = phase("run_scaling", scaling_phase, dev)
+    repeat = phase("parsac_repeat", parsac_repeat_phase, dev)
 
     from xrslam_tpu_torch.tools.make_dataset import render_sequence
 
@@ -2730,22 +2985,24 @@ def main(argv=None) -> None:
     seq = render_sequence(n_frames=N_FRAMES, width=752, height=480, focal=458.0)
     print(f"rendered {N_FRAMES} frames 752x480 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    drive, main_slam = drive_phase(dev, seq)
-    bases = nullspace_phase(dev, drive)
-    nat = native_phase(drive)
-    valid = validator_phase(main_slam.pipeline.swt)
+    drive, main_slam = phase("main_drive", drive_phase, dev, seq)
+    bases = phase("nullspace", nullspace_phase, dev, drive)
+    nat = phase("native", native_phase, drive)
+    valid = phase("validator", validator_phase, main_slam.pipeline.swt)
     del main_slam
-    parsac_drive = parsac_drive_phase(dev, seq)
-    pnp_drive = visual_pnp_phase(dev, seq)
-    obj = object_phase(dev)
+    parsac_drive = phase("parsac_drive", parsac_drive_phase, dev, seq)
+    pnp_drive = phase("visual_pnp", visual_pnp_phase, dev, seq)
     with tempfile.TemporaryDirectory() as tmp:
-        dataset = dataset_phase(dev, os.path.join(tmp, "euroc"))
-        loc = localizer_phase(dev, dataset)
-        capi = capi_phase(dev, seq, dataset, tmp)
-        ros = ros_phase(dev, dataset)
-        ckpt = checkpoint_phase(dev, seq, tmp)
-        bench = bench_phase(dev, os.path.join(tmp, "bench"))
-        mseq = multiseq_phase(dev, os.path.join(tmp, "multiseq"))
+        mobile = phase("mobile_profile", mobile_phase, dev, os.path.join(tmp, "mobile"))
+    obj = phase("dynamic_object", object_phase, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset = phase("dataset", dataset_phase, dev, os.path.join(tmp, "euroc"))
+        loc = phase("localizer", localizer_phase, dev, dataset)
+        capi = phase("capi", capi_phase, dev, seq, dataset, tmp)
+        ros = phase("ros_node", ros_phase, dev, dataset)
+        ckpt = phase("checkpoint", checkpoint_phase, dev, seq, tmp)
+        bench = phase("benchmark", bench_phase, dev, os.path.join(tmp, "bench"))
+        mseq = phase("multiseq", multiseq_phase, dev, os.path.join(tmp, "multiseq"))
 
     # one record per kernel, from its main-path entry (K1's and K2's
     # fused entries), with entry 1's numbers beside it
@@ -2763,6 +3020,7 @@ def main(argv=None) -> None:
                             "main": drive["launches"][k.name],
                             "parsac": parsac_drive["launches"][k.name],
                             "visual_pnp": pnp_drive["launches"][k.name],
+                            "mobile_profile": mobile["launches"][k.name],
                             "dynamic_object": obj["launches"][k.name],
                             "dataset": dataset["launches"][k.name],
                             "localizer": loc["launches"][k.name],
@@ -2807,13 +3065,16 @@ def main(argv=None) -> None:
                        "k2_reproj_factor_gram_batched": k2_batch, "drive": drive,
                        "native": nat, "capi": capi, "ros_node": ros, "multiseq": mseq,
                        "parsac_repeat": repeat, "parsac_drive": parsac_drive,
-                       "visual_pnp_drive": pnp_drive, "object_drive": obj,
+                       "visual_pnp_drive": pnp_drive, "mobile_drive": mobile,
+                       "object_drive": obj,
                        "dataset_drive": dataset, "localizer_drive": loc,
                        "validator": valid, "checkpoint": ckpt, "benchmark": bench,
                        "sharded": shard, "run_scaling": scaling,
-                       "nullspace_basis": bases,
+                       "nullspace_basis": bases, "phase_seconds": phase_s,
                        "seconds": time.perf_counter() - t_start,
                        "kernels": kernels}, f, indent=1, default=float)
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}),
+          flush=True)
     print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

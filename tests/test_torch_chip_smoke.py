@@ -25,6 +25,12 @@ round trip as a process of its own), the kernels' plain versions
 counting; the ROS node on 20 frames. `slow`: the multi-sequence phase at
 320x240, seeds 3 and 32, 44 frames.
 
+Phase 7b, the mobile profile, runs at its full size (640x480, 60
+frames, the shipped `configs/iphone_slam.yaml`) with the counting plain
+wrappers, its solver time budget calibrated on the CPU's solve times;
+the phase's own statement of the budget's rule is held to the port's
+tracker on a grid of estimates.
+
 The validator phase runs on the window of the committed JAX checkpoint
 (`tests/data/jax_circle_ckpt30.npz`) restored on the CPU. `slow`: the
 checkpoint phase's runs (the bearing-fed bench scene with PARSAC, 34
@@ -386,3 +392,41 @@ def test_gram_form_yardstick_rehearsal(monkeypatch):
                                          {"ms": 1.0, "device_ms": 0.25})
     assert res["max_abs_err"] < 1e-9 and res["ms"] == 2.0 and res["device_ms"] == 0.5
     assert 0 < res["kernel_calls"] < res["operators"]
+
+
+def test_mobile_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 7b at its full size (640x480, 60 frames, the shipped
+    configs/iphone_slam.yaml) with the counting plain kernels: every
+    check of the phase runs here, the budget calibrated on the CPU's
+    solve times."""
+    counting_plain_kernels(monkeypatch)
+    res = chip_smoke.mobile_phase(torch.device("cpu"), str(tmp_path / "mobile"))
+    assert res["frames_tracked"] >= 10 and res["ate_m"] <= 0.25
+    assert 2 * res["pnp_frames"] >= res["frames_tracked"]
+    assert res["solver_time_limit"] == 0.1
+    assert res["launches"]["klt_level"] == res["frame_pairs_tracked"] == 59
+    calibrated = {v: b for v, b in res["budget"].items() if b["est_ms_per_iter"]}
+    assert calibrated and all(b["budget_syncs"] == 3 for b in calibrated.values())
+    assert any(b["solves_after"] for b in calibrated.values())
+    assert res["budget_syncs"] == sum(b["budget_syncs"] for b in res["budget"].values())
+
+
+def test_budget_rule_restated():
+    """`chip_smoke.budgeted_iterations` (the phase's own statement of the
+    rule) against the port's tracker on a grid of estimates."""
+    from xrslam_tpu_torch.config import Config
+    from xrslam_tpu_torch.core.map import PipelineMap
+    from xrslam_tpu_torch.core.sliding_window import SlidingWindowTracker
+    from xrslam_tpu_torch.estimation.solver import SolveOptions
+
+    swt = SlidingWindowTracker(PipelineMap(), Config(solver_time_limit=0.1), "cpu")
+    for est in (None, 1e-4, 0.001, 0.004, 0.0065, 0.012, 0.02, 0.043, 0.051, 0.2):
+        swt._iter_seconds.clear()
+        if est is not None:
+            swt._iter_seconds.update(v=est)
+        for share in (1, 2, 10):
+            want = swt._budget_chained("v", SolveOptions(iterations=share),
+                                       SolveOptions(iterations=10)).iterations
+            assert chip_smoke.budgeted_iterations(0.1, est, 10, share) == want
+        assert chip_smoke.budgeted_iterations(0.1, est, 10) == \
+            swt._budgeted_iterations("v")

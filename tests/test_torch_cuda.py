@@ -656,3 +656,31 @@ def test_checkpoint_restore_stays_on_its_device_type(dev, tmp_path):
     with pytest.raises(ValueError, match="cuda generator state"):
         checkpoint.load_pipeline(paths["cuda"], cfg, SyntheticTracker(device="cpu"),
                                  device="cpu")
+
+
+def test_budget_calibration_syncs_only_at_start_up(dev, monkeypatch):
+    """The solver time budget on the card: `_note_solve` on a solve's
+    CUDA result synchronizes the device on calls 1-3 of each variant
+    and never again (steady state adds no sync), and the estimate it
+    keeps is the median of those three."""
+    from xrslam_tpu_torch.config import Config
+    from xrslam_tpu_torch.core.map import PipelineMap
+    from xrslam_tpu_torch.core.sliding_window import SlidingWindowTracker
+    from xrslam_tpu_torch.estimation.solver import SolveOptions
+    from xrslam_tpu_torch.io.synthetic import demo_window_problem
+
+    swt = SlidingWindowTracker(PipelineMap(), Config(solver_time_limit=0.1), dev)
+    state, data = demo_window_problem(4, 32, device=dev)
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (syncs.append(1), real(*a, **k))[1])
+    for variant in ("subwindow", "chained:subwindow", "kf_chain"):
+        before = len(syncs)
+        for call in range(10):
+            st, _ = swt._solve_timed(variant, state, data, SolveOptions(iterations=2))
+            assert st.p.is_cuda
+            assert len(syncs) - before == min(call, 3)
+        samples = swt._solve_samples[variant]
+        assert len(samples) == 3 and swt._iter_seconds[variant] == sorted(samples)[1] > 0
+    assert swt.stats["budget_syncs"] == len(syncs) == 9

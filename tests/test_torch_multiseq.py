@@ -13,6 +13,9 @@
   split (its body is kept below as the reference), over a bearing-fed
   drive; with a one-sequence `tools.multiseq.ChainedSolveBroker` (the
   batched solve at N = 1) within 1e-9;
+- the broker under a solver time budget: steps whose subwindow shares
+  clamp to different counts are solved in one batched call per options
+  pair, each row equal to its single solve within 1e-12;
 - `tools.multiseq` (slow) at 320x240, N = 2 (seeds 3 and 32, which
   both track from frame 31 at this size; seed 5 does not start within
   44 frames here): both modes track the same frames, ATEs within 1e-6,
@@ -121,6 +124,41 @@ def test_reproj_factor_gram_plain_batch_equals_single_calls():
     for i, (s, d) in enumerate(pairs):
         for a, b in zip(gram.reproj_factor_gram_plain(s, d), out):
             assert torch.equal(a, b[i])
+
+
+class _Finisher:
+    """Stands in for a tracker: keeps what the broker finishes it with."""
+
+    def __init__(self):
+        self.done = []
+
+    def finish_fused_subframe(self, ctx, st2):
+        self.done.append((ctx, st2))
+
+
+def test_broker_groups_steps_by_budget(windows):
+    """Under a solver time budget the sequences' subwindow shares can
+    clamp to different counts: the broker solves each options pair as
+    one batched call, and every step finishes with its own row (equal to
+    its single solve) and the start time its budget is timed from."""
+    tst, td1, td2 = _port_batch(windows)
+    clamps = (5, 1, 5)
+    broker = multiseq.ChainedSolveBroker(N)
+    finishers = [_Finisher() for _ in clamps]
+    for i, (f, s) in enumerate(zip(finishers, clamps)):
+        broker.submit(f, dict(l_state=tst[i], l_data=td1[i], l_opts=SolveOptions(**O1),
+                              s_state=tst[i], s_data=td2[i],
+                              s_opts=SolveOptions(iterations=s), s2=SLOTS[i]))
+    broker.flush()
+    assert broker.batched_calls == len(set(clamps)) and broker.solo_equiv == N
+    for i, (f, s) in enumerate(zip(finishers, clamps)):
+        (ctx, st2), = f.done
+        assert isinstance(ctx["t0"], float)
+        _, ref, _ = solver.solve_chained(tst[i], td1[i], SolveOptions(**O1), tst[i], td2[i],
+                                         SolveOptions(iterations=s), SLOTS[i], SLOTS[i])
+        for name, a, b in zip(ref._fields, ref, st2):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-12,
+                                       err_msg=f"row {i} {name}")
 
 
 def _unsplit_fused_subframe_step(self, target):

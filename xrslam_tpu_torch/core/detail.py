@@ -64,8 +64,18 @@ class VIOPipeline:
     """Push IMU + camera samples, get poses. Runs on the card unless
     `device="cpu"` is asked for."""
 
+    # the JAX package's schedules that hide its TPU's host link; the port
+    # runs the synchronous schedule, whose outputs differ from
+    # worker_overlap's one-frame backend lag, so each is refused
+    UNPORTED_SCHEDULES = ("worker_overlap", "pipelined_writeback", "chained_frontend")
+
     def __init__(self, config: Config, tracker, device="cuda",
                  times: Optional[StageTimes] = None):
+        for flag in self.UNPORTED_SCHEDULES:
+            if getattr(config, flag):
+                raise ValueError(
+                    f"Config.{flag}=True is not ported: xrslam_tpu_torch runs the "
+                    "synchronous schedule only (ROADMAP.md, queue 1, 'Left behind')")
         self.config = config
         self.tracker = tracker
         self.device = compute_device(device)

@@ -19,6 +19,10 @@
                finish_fused_subframe around one batched solve of N
                sequences (tools/multiseq.py)
 
+Under a `Config.solver_time_limit` below 1e5 s every solve's iteration
+count is budgeted from its variant's measured time an iteration
+(`_note_solve`, `_budgeted_iterations`, `_budget_chained`).
+
 Every write-back is applied immediately (the port has no deferred
 write-back pipeline). The PARSAC stage reads the device at most twice a
 frame: the judge's inlier mask together with the IMU-predicted pose, and
@@ -28,6 +32,7 @@ all of update_track_status's masks stacked.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -88,8 +93,14 @@ class SlidingWindowTracker:
         self.times = times if times is not None else StageTimes()
         self.noise = pre.ImuNoise.from_config(config, device=self.device)
         # +2: a subframe lift inserts an extra keyframe in the step that
-        # attached the new frame, before slide_window trims it
-        self.K_slots = config.sliding_window_size + 2
+        # attached the new frame, before slide_window trims it. The
+        # initializer hands over initializer_keyframe_num keyframes, which
+        # the first keyframe step's slide_window trims to the window size
+        # (the mobile profile: window 5, 8 keyframes); the JAX package
+        # sizes the slots by the window alone and fails extract_window's
+        # K <= K_slots there (xrslam_tpu/core/sliding_window.py:135).
+        self.K_slots = max(config.sliding_window_size,
+                           config.initializer_keyframe_num) + 2
         self.L_slots = config.window_landmark_slots
         self.K_sub = 1 + max(self.ROT_MERGE_TRIGGER,
                              config.sliding_window_subframe_size) + 1
@@ -127,11 +138,95 @@ class SlidingWindowTracker:
             "parsac_host_reads": 0,   # device -> host reads in the PARSAC stage
             "depth_keyframes": 0,     # keyframes through the depth-camera split path
             "depth_seeded": 0,        # landmarks seeded from a measured depth there
+            "budget_syncs": 0,        # device waits of the solver time budget's calibration
         }
+        # solver_time_limit (the reference's Ceres max_solver_time_in_seconds,
+        # solver.cpp:186): a solve runs a fixed number of LM iterations,
+        # so the budget measures each solve variant's time per iteration
+        # at start-up and clamps the iteration count of its later solves
+        self._iter_seconds: dict = {}
+        self._solve_calls: dict = {}
+        self._solve_samples: dict = {}   # the calibration samples per variant
 
     def _extract(self, frames, K_slots, **kw):
         return extract_window(self.map, frames, K_slots, self.L_slots,
                               self.noise, self.device, **kw)
+
+    # ------------------------------------------------------------------
+    # solver time budget
+    # ------------------------------------------------------------------
+    # iteration counts a clamped solve may take
+    BUDGET_LADDER = (1, 2, 3, 5, 8, 15, 30)
+    # calls of a variant timed after its first (untimed) call; their
+    # median fixes its time per iteration
+    _CALIB_SAMPLES = 3
+
+    def _ladder_value(self, fit: int) -> int:
+        return max([v for v in self.BUDGET_LADDER if v <= fit] or [1])
+
+    def _limit_active(self) -> bool:
+        limit = self.config.solver_time_limit
+        return bool(limit) and 0 < limit < 1.0e5
+
+    def _budgeted_iterations(self, variant: str) -> int:
+        """Iteration count of a solve variant under solver_time_limit."""
+        iters = self.config.solver_iteration_limit
+        limit = self.config.solver_time_limit
+        est = self._iter_seconds.get(variant)
+        if limit and limit > 0 and est:
+            fit = max(1, int(limit / est))
+            if fit < iters:
+                iters = self._ladder_value(fit)
+        return iters
+
+    def _budget_chained(self, chain_key: str, l_opts: SolveOptions,
+                        s_opts: SolveOptions) -> SolveOptions:
+        """Clamp the second share of a chained solve so that the whole
+        chain fits the budget; the localize share is left as it is."""
+        limit = self.config.solver_time_limit
+        est = self._iter_seconds.get(chain_key)
+        if not self._limit_active() or not est:
+            return s_opts
+        fit = max(1, int(limit / est) - l_opts.iterations)
+        if fit < s_opts.iterations:
+            return dataclasses.replace(s_opts, iterations=self._ladder_value(fit))
+        return s_opts
+
+    def _wait_device(self, result) -> None:
+        """The budget's one wait on the device: synchronize the result's
+        CUDA device (nothing to wait for on the CPU)."""
+        self.stats["budget_syncs"] += 1
+        if result.p.is_cuda:
+            torch.cuda.synchronize(result.p.device)
+
+    def _note_solve(self, variant: str, result, iterations: int, t0: float) -> None:
+        """Start-up timing of a solve variant begun at `t0`
+        (time.perf_counter()): call 0 is skipped, calls 1..3 wait for the
+        device and their median time per iteration is kept, and later
+        calls add no wait. The JAX package starts its clock after the
+        solve's asynchronous dispatch; the port dispatches a solve op by
+        op from the host, so its clock starts before the solve."""
+        n = self._solve_calls.get(variant, 0)
+        self._solve_calls[variant] = n + 1
+        if (n < 1 or n > self._CALIB_SAMPLES
+                or variant in self._iter_seconds or iterations <= 0):
+            return
+        self._wait_device(result)
+        dt = time.perf_counter() - t0
+        samples = self._solve_samples.setdefault(variant, [])
+        samples.append(dt / iterations)
+        if len(samples) >= self._CALIB_SAMPLES:
+            samples.sort()
+            self._iter_seconds[variant] = samples[len(samples) // 2]
+
+    def _solve_timed(self, variant: str, state, data, opts: SolveOptions):
+        """solve_window, timed by _note_solve under a solver_time_limit."""
+        if not self._limit_active():
+            return solve_window(state, data, opts)
+        t0 = time.perf_counter()
+        st, info = solve_window(state, data, opts)
+        self._note_solve(variant, st, opts.iterations, t0)
+        return st, info
 
     def keyframes(self) -> List[FrameRec]:
         return self.map.frames
@@ -282,7 +377,7 @@ class SlidingWindowTracker:
         """Localize → inject → triangulate candidates → full-window
         VI-BA → landmark gates, then the write-back and flag updates."""
         l_state, l_data, l_meta, target, l_slot = self._prepare_localize()
-        l_opts = SolveOptions(iterations=self.config.solver_iteration_limit)
+        l_opts = SolveOptions(iterations=self._budgeted_iterations("localize"))
         self.manage_keyframe(verdict)
         frames = list(self.map.frames)
         new_kf = frames[-1]
@@ -308,11 +403,22 @@ class SlidingWindowTracker:
             s2, inject = 0, False
         fuv = np.stack([[f.K[0, 0], f.K[1, 1]] for f in frames]
                        + [[1.0, 1.0]] * (self.K_slots - len(frames)))
-        r_opts = SolveOptions(iterations=self.config.solver_iteration_limit)
+        # the refine share is budgeted with the whole chain, as the
+        # subframe chain is (_budget_chained), from the "kf_chain" time
+        # that _note_solve measures. Departure from the JAX package, which
+        # takes it from the "refine" time (xrslam_tpu/core/sliding_window.py:650)
+        # that only the depth path's refine_window measures, and so never
+        # clamps this chain; the reference limits every solve (solver.cpp:186).
+        r_opts = self._budget_chained(
+            "kf_chain", l_opts,
+            SolveOptions(iterations=self._budgeted_iterations("refine")))
+        t0 = time.perf_counter()
         st1, st2, gates, tri_ok = solve_keyframe_chain(
             l_state, l_data, l_opts, state, data, r_opts, l_slot, s2, inject,
             torch.as_tensor(cand_mask, device=self.device),
             torch.as_tensor(fuv, dtype=state.p.dtype, device=self.device))
+        if self._limit_active():
+            self._note_solve("kf_chain", st2, l_opts.iterations + r_opts.iterations, t0)
         data_eff = data._replace(
             landmark_mask=(data.landmark_mask | tri_ok) & gates[0])
         self._last_window = (st2, data_eff, meta)
@@ -369,14 +475,24 @@ class SlidingWindowTracker:
         if variant == "subwindow_rot":
             l_data = l_data._replace(landmark_mask=s_data.landmark_mask)
         l_state = self._apply_pred(s_state, frames, s_data)
-        l_opts = SolveOptions(iterations=self.config.solver_iteration_limit)
+        # under a solver_time_limit the chain is budgeted as one solve:
+        # its time per iteration clamps the subwindow share, the localize
+        # share keeps its own count
+        chain_key = "chained:" + variant
+        l_opts = SolveOptions(iterations=self._budgeted_iterations("localize"))
+        s_opts = self._budget_chained(chain_key, l_opts, s_opts)
         return dict(l_state=l_state, l_data=l_data, l_opts=l_opts,
                     s_state=s_state, s_data=s_data, s_opts=s_opts, s2=s2,
-                    variant=variant, kf=kf, saved=saved, meta=s_meta)
+                    variant=variant, chain_key=chain_key, kf=kf, saved=saved,
+                    meta=s_meta)
 
     def finish_fused_subframe(self, ctx: dict, st2) -> None:
-        """Apply a fused subframe solve's result: restore the keyframe's
-        fix flags, write the subwindow back."""
+        """Apply a fused subframe solve's result: time it for the budget
+        (from ctx["t0"], set where the solve began), restore the
+        keyframe's fix flags, write the subwindow back."""
+        if self._limit_active():
+            self._note_solve(ctx["chain_key"], st2, ctx["l_opts"].iterations
+                             + ctx["s_opts"].iterations, ctx["t0"])
         ctx["kf"].fix_pose, ctx["kf"].fix_motion = ctx["saved"]
         write_back(self.map, st2, ctx["meta"], write_landmarks=False)
 
@@ -391,6 +507,7 @@ class SlidingWindowTracker:
         if self.solve_broker is not None:
             self.solve_broker.submit(self, ctx)
             return
+        ctx["t0"] = time.perf_counter()
         _, st2, _ = solve_chained(ctx["l_state"], ctx["l_data"], ctx["l_opts"],
                                   ctx["s_state"], ctx["s_data"], ctx["s_opts"],
                                   ctx["s2"], ctx["s2"])
@@ -428,8 +545,8 @@ class SlidingWindowTracker:
         """Solve the new frame alone (the localize window) and write its
         state back."""
         state, data, meta, target, _ = self._prepare_localize()
-        st, _ = solve_window(state, data, SolveOptions(
-            iterations=self.config.solver_iteration_limit))
+        st, _ = self._solve_timed("localize", state, data, SolveOptions(
+            iterations=self._budgeted_iterations("localize")))
         write_back(self.map, st, meta, write_landmarks=False,
                    frame_subset={target.id})
 
@@ -464,8 +581,8 @@ class SlidingWindowTracker:
             self.marg = MargPrior.gauge_fix(self.K_slots, self.L_slots, state)
         data = data._replace(marg=self.marg, use_marg=torch.ones(
             (), dtype=torch.bool, device=self.device))
-        st, _ = solve_window(state, data, SolveOptions(
-            iterations=self.config.solver_iteration_limit))
+        st, _ = self._solve_timed("refine", state, data, SolveOptions(
+            iterations=self._budgeted_iterations("refine")))
         fuv = np.stack([[f.K[0, 0], f.K[1, 1]] for f in frames]
                        + [[1.0, 1.0]] * (self.K_slots - len(frames)))
         gates = landmark_gates(st, data, torch.as_tensor(
@@ -720,12 +837,12 @@ class SlidingWindowTracker:
                 landmark_mask=torch.as_tensor(lm_mask & tri, device=dev),
                 fix_landmark=torch.as_tensor(fix_lm | tri, device=dev),
                 obs_mask=torch.as_tensor(obs_rep | obs_rot, device=dev))
-            opts = SolveOptions(iterations=self.config.solver_iteration_limit,
+            opts = SolveOptions(iterations=self._budgeted_iterations("subwindow_rot"),
                                 use_rotation=True)
             variant = "subwindow_rot"
         else:
             data_r = data._replace(fix_landmark=torch.as_tensor(fix_lm, device=dev))
-            opts = SolveOptions(iterations=self.config.solver_iteration_limit)
+            opts = SolveOptions(iterations=self._budgeted_iterations("subwindow"))
             variant = "subwindow"
         return state, data_r, meta, opts, variant, kf, saved
 

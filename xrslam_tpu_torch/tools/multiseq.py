@@ -57,7 +57,9 @@ class ChainedSolveBroker:
     """Collects `prepare_fused_subframe` contexts from N lockstepped
     trackers and solves them as one batched program per (l_opts, s_opts)
     group, each group padded to the fleet size (one batch shape per
-    options pair), then finishes each tracker's step.
+    options pair; under a solver time budget, sequences whose chains
+    clamp to different counts fall into different groups), then finishes
+    each tracker's step, each timed from its group's solve.
 
     With `check_first`, the first flush that batches more than one
     sequence also solves each window alone with `solver.solve_chained`
@@ -90,6 +92,9 @@ class ChainedSolveBroker:
             def grab(key):
                 return tuple(c[key] for _, c in padded)
 
+            t0 = time.perf_counter()
+            for _, ctx in items:
+                ctx["t0"] = t0
             outs = solver.solve_chained_batch(
                 grab("l_state"), grab("l_data"), l_opts, grab("s_state"),
                 grab("s_data"), s_opts, [c["s2"] for _, c in padded])
