@@ -149,6 +149,19 @@
    line parses, >= 60% of the frames were tracked, ATE <= 0.25 m and
    both kernels launched as in 5; prints the line (frames/s, per-frame
    latency median and p90, stage means).
+12b. the schedules, in processes of their own started before 12 (whose
+   timed pass starts when the pipelined process has warmed up on 20
+   frames, so that the two passes run side by side): (a) the same
+   benchmark pass with `--schedule pipelined` (`worker_overlap` +
+   `pipelined_writeback`, the two-frame lag), held to 12's synchronous
+   pass: frames tracked within 1, the same last output time, the final
+   window after `flush` within 1e-9 (q, p, v), positions on common
+   output times within 2e-2 m, ATE <= 0.25 m and the kernels launched as
+   in 5; prints both passes' frames/s and latency median and p90. (b) the bearing scene of 11
+   (60 frames, PARSAC on) straight and with `worker_overlap`: the final
+   windows after `flush` within 1e-9, K2 launched and K1 not; prints
+   the device syncs a frame of both drives, counted by torch's sync
+   debug mode.
 
 Beside these:
 - K2's fused entry on a batch of 4 windows (K_sub=11, L=384, f64) in
@@ -263,6 +276,10 @@ CKPT_STATE_TOL = 1e-12
 BENCH_FRAMES = 75
 # one timed pass and no warm-up: the main drive has warmed the process
 BENCH_MIN_TRACKED_SHARE = 0.6
+# phase 12b, the schedules: tests/test_worker_overlap.py's bounds (the
+# final window after flush, positions on common output times)
+SCHEDULE_WINDOW_TOL = 1e-9
+SCHEDULE_POS_TOL_M = 2e-2
 # The dynamic-object scene's outcome turns on which frame the judge
 # first returns True, a matter of the RANSAC draws: over Config.random
 # seeds the JAX package met its e2e criteria in about half of the runs
@@ -1946,10 +1963,12 @@ def checkpoint_bearing_worker(parsac_flag: bool, n_frames: int, cut, dev: str,
 
 def compare_bearing_runs(what: str, straight: dict, resumed: dict, t_cut: float,
                          parsac_flag: bool, n_frames: int, cut: int) -> dict:
-    """The resumed tail against the straight run's, matched by time:
-    positions within CKPT_TAIL_TOL_M; with PARSAC both stages' bin
-    confidences and m_th within CKPT_STATE_TOL."""
-    ref = {float(t): p for t, p in zip(straight["t"], straight["p"]) if t > t_cut}
+    """The resumed tail against the straight run's, matched by time from
+    the cut's frame on (with deferred write-backs the first output after
+    the cut is the anchor at that frame): positions within
+    CKPT_TAIL_TOL_M; with PARSAC both stages' bin confidences and m_th
+    within CKPT_STATE_TOL."""
+    ref = {float(t): p for t, p in zip(straight["t"], straight["p"]) if t >= t_cut}
     out = {float(t): p for t, p in zip(resumed["t"], resumed["p"])}
     if not ref or set(ref) != set(out):
         fail(f"checkpoint {what}: the resumed run tracked frames at {sorted(out)}, the "
@@ -2069,12 +2088,13 @@ def checkpoint_phase(dev, seq, out_dir: str, frames: int = CKPT_FRAMES,
 
 def bench_phase(dev, out_dir: str, frames: int = BENCH_FRAMES, width: int = 752,
                 height: int = 480, focal: float = 458.0,
-                min_share: float = BENCH_MIN_TRACKED_SHARE) -> dict:
-    """`tools.bench_pipeline` at the main path's geometry, one timed pass
-    of `frames` frames and no warm-up, with the launch counts reset
-    before and read after; its JSON line must parse, at least
-    `min_share` of the frames tracked, ATE <= 0.25 m, and both kernels
-    launched as in the main drive."""
+                min_share: float = BENCH_MIN_TRACKED_SHARE, schedule: str = "sync") -> dict:
+    """`tools.bench_pipeline` at the main path's geometry under
+    `schedule`, one timed pass of `frames` frames and no warm-up, with
+    the launch counts reset before and read after; its JSON line must
+    parse, at least `min_share` of the frames tracked, ATE <= 0.25 m, and
+    both kernels launched as in the main drive. The result keeps the
+    pass (`run`: output times, positions, final window)."""
     import io
     import math
 
@@ -2087,12 +2107,12 @@ def bench_phase(dev, out_dir: str, frames: int = BENCH_FRAMES, width: int = 752,
 
     argv = ["--frames", str(frames), "--width", str(width), "--height", str(height),
             "--focal", str(focal), "--passes", "1", "--warmup", "0", "--dir", out_dir,
-            "--device", torch.device(dev).type]
+            "--device", torch.device(dev).type, "--schedule", schedule]
     buf = io.StringIO()
     build.reset_launch_counts()
     with counting(klt, "track_keypoints") as pairs, \
             counting(img_ops, "scharr") as scharr_calls, contextlib.redirect_stdout(buf):
-        bench_pipeline.main(argv)
+        _, run = bench_pipeline.bench(argv)
     line = buf.getvalue().strip().splitlines()[-1]
     print("bench_pipeline " + " ".join(argv) + ": " + line, flush=True)
     try:
@@ -2101,9 +2121,159 @@ def bench_phase(dev, out_dir: str, frames: int = BENCH_FRAMES, width: int = 752,
         fail(f"benchmark: its line does not parse ({e}): {line}")
     res.update(ate_m=res["ate_rmse_m"], launches={k.name: k.launches for k in build.KERNELS},
                entry_launches={k.name: dict(k.entry_launches) for k in build.KERNELS},
-               frame_pairs_tracked=pairs[0], scharr_calls=scharr_calls[0])
-    check_image_path(res, "benchmark", min_tracked=math.ceil(min_share * frames))
-    check_ate(res, "benchmark")
+               frame_pairs_tracked=pairs[0], scharr_calls=scharr_calls[0],
+               run={k: run[k] for k in ("ts", "ps", "window")})
+    what = "benchmark" + ("" if schedule == "sync" else f", {schedule}")
+    check_image_path(res, what, min_tracked=math.ceil(min_share * frames))
+    check_ate(res, what)
+    return res
+
+
+def compare_windows(what: str, a: list, b: list) -> float:
+    """Largest |difference| of q, p, v over two final windows (lists of
+    (t, q, p, v)), which must hold the same frames; fails beyond
+    SCHEDULE_WINDOW_TOL."""
+    if [w[0] for w in a] != [w[0] for w in b] or not a:
+        fail(f"{what}: the final windows hold frames at {[w[0] for w in a]} and "
+             f"{[w[0] for w in b]}")
+    err = max(float(np.max(np.abs(np.asarray(x[i]) - np.asarray(y[i]))))
+              for x, y in zip(a, b) for i in (1, 2, 3))
+    if not err <= SCHEDULE_WINDOW_TOL:
+        fail(f"{what}: the final windows differ by {err} (> {SCHEDULE_WINDOW_TOL})")
+    return err
+
+
+def schedule_bearing_run(dev, overlap: bool, frames: int = CKPT_FRAMES) -> dict:
+    """The checkpoint phase's bearing scene (60 frames, the dataset's
+    slam config), PARSAC on, straight or with `worker_overlap`; then
+    `flush`. Launch counts set to 0 first; device syncs counted by
+    torch's sync debug mode in every frame's processing and the flush."""
+    import torch
+
+    from xrslam_tpu_torch.core.detail import SyntheticTracker, VIOPipeline
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools import object_scene as osc
+    from xrslam_tpu_torch.tools.make_dataset import sequence_config
+
+    dev = torch.device(dev)
+    scene = bench_bearing_scene(frames)
+    cfg = sequence_config(752, 480, 458.0).replace(parsac_flag=True, worker_overlap=overlap)
+    build.reset_launch_counts()
+    pipe = VIOPipeline(cfg, SyntheticTracker(device=dev), device=dev)
+    with counting_syncs(VIOPipeline, ("_process_frame", "flush")) as syncs:
+        t, _ = osc.drive(pipe, scene)
+        pipe.flush()
+    if pipe.swt is None:
+        fail(f"schedules: the bearing run (worker_overlap={overlap}) is not tracking")
+    return {"tracked": len(t), "frames": frames, "syncs_per_frame": syncs[0] / frames,
+            "window": [(f.t, f.q, f.p, f.v) for f in pipe.swt.map.all_frames()],
+            "launches": {k.name: k.launches for k in build.KERNELS}}
+
+
+def schedule_bearing_worker(overlap: bool, frames: int, dev: str) -> dict:
+    """One bearing drive of phase 12b, in a process of its own."""
+    import torch
+
+    torch.set_num_threads(1)
+    return schedule_bearing_run(dev, overlap, frames)
+
+
+def pipelined_bench_worker(dev: str, out_dir: str, warm_dir: str, ready, frames: int) -> dict:
+    """Phase 12b's pipelined benchmark pass in a process of its own: a
+    WARM_FRAMES pass to warm the process (as the main drive warms the
+    one phase 12 runs in), then `ready` is set and the counted pass of
+    `frames` frames runs."""
+    import io
+
+    import torch
+
+    from xrslam_tpu_torch.tools import bench_pipeline
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        bench_pipeline.main(["--frames", str(WARM_FRAMES), "--width", "752", "--height",
+                             "480", "--focal", "458", "--passes", "1", "--warmup", "0",
+                             "--dir", warm_dir, "--device", torch.device(dev).type,
+                             "--schedule", "pipelined"])
+    ready.set()
+    return bench_phase(dev, out_dir, frames=frames, schedule="pipelined")
+
+
+def start_schedules(dev, out_dir: str, frames: int = BENCH_FRAMES,
+                    bearing_frames: int = CKPT_FRAMES):
+    """Phase 12b's drives, each in a process of its own, started beside
+    phase 12: the pipelined benchmark pass (on phase 12's rendered scene,
+    rendered here first) and the two bearing drives. Returns (the pool,
+    the futures: pipelined pass, bearings straight, bearings overlapped);
+    phase 12's timed pass starts once the pipelined process is warm, so
+    that the two passes run side by side under the same load."""
+    import concurrent.futures
+    import multiprocessing
+
+    from xrslam_tpu_torch.tools.bench_pipeline import dataset_dir
+    from xrslam_tpu_torch.tools.make_dataset import render_dataset
+
+    ds = dataset_dir(out_dir, frames, 500, 752, 480, 458.0)
+    render_dataset(ds, n_frames=frames, n_landmarks=500, width=752, height=480, focal=458.0)
+    ctx = multiprocessing.get_context("spawn")
+    manager = ctx.Manager()
+    ready = manager.Event()
+    pool = concurrent.futures.ProcessPoolExecutor(max_workers=3, mp_context=ctx)
+    futures = [pool.submit(pipelined_bench_worker, str(dev), out_dir, out_dir + "_warm", ready,
+                           frames)]
+    futures += [pool.submit(schedule_bearing_worker, o, bearing_frames, str(dev))
+                for o in (False, True)]
+    if not ready.wait(OBJECT_TIMEOUT_S):
+        fail("schedules: the pipelined benchmark process did not warm up")
+    return pool, manager, futures
+
+
+def schedules_phase(sync_bench: dict, pipe: dict, straight: dict, overlap: dict) -> dict:
+    """Phase 12b's checks. (a) the pipelined benchmark pass (`pipe`,
+    `bench_phase` with schedule "pipelined": its own limits and kernel
+    checks held there) against phase 12's synchronous pass: frames
+    tracked within 1, the same last output time, the final window after
+    flush within SCHEDULE_WINDOW_TOL, positions on common output times
+    within SCHEDULE_POS_TOL_M. (b) the bearing scene with PARSAC under
+    `worker_overlap` against the straight drive (`schedule_bearing_run`):
+    the final window within SCHEDULE_WINDOW_TOL, K2 launched and K1 not
+    in both; device syncs a frame printed for both."""
+    s_run, p_run = sync_bench["run"], pipe["run"]
+    if abs(len(s_run["ts"]) - len(p_run["ts"])) > 1:
+        fail(f"schedules: pipelined tracked {len(p_run['ts'])} frames, sync "
+             f"{len(s_run['ts'])}")
+    if not len(p_run["ts"]) or s_run["ts"][-1] != p_run["ts"][-1]:
+        fail("schedules: the last output times differ")
+    win_err = compare_windows("schedules, pipelined vs sync", s_run["window"],
+                              p_run["window"])
+    idx = {t: i for i, t in enumerate(p_run["ts"].tolist())}
+    common = [(i, idx[t]) for i, t in enumerate(s_run["ts"].tolist()) if t in idx]
+    pos_err = max(float(np.linalg.norm(s_run["ps"][i] - p_run["ps"][j])) for i, j in common)
+    if not pos_err < SCHEDULE_POS_TOL_M:
+        fail(f"schedules: positions on common output times differ by {pos_err} m "
+             f"(>= {SCHEDULE_POS_TOL_M})")
+    res = {"pipelined": {k: v for k, v in pipe.items() if k != "run"},
+           "window_err": win_err, "pos_err_m": pos_err, "common_outputs": len(common)}
+    for name, r in (("sync", sync_bench), ("pipelined", pipe)):
+        print(f"schedules, {name}: {r['frames_per_s']:.3f} frames/s, latency median "
+              f"{r['latency_ms']['median']:.1f} ms, p90 {r['latency_ms']['p90']:.1f} ms, "
+              f"{r['frames_tracked']}/{r['frames']} tracked, ATE {r['ate_rmse_m']:.4f} m",
+              flush=True)
+    print(f"schedules, pipelined vs sync: final window |d| {win_err:.3e} (limit "
+          f"{SCHEDULE_WINDOW_TOL:g}), positions on {len(common)} common outputs "
+          f"|dp| {pos_err:.3e} m (limit {SCHEDULE_POS_TOL_M:g}); launches "
+          f"{pipe['launches']}", flush=True)
+    res["bearings_window_err"] = compare_windows(
+        "schedules, bearings with PARSAC, overlap vs straight", straight["window"],
+        overlap["window"])
+    for name, r in (("straight", straight), ("overlap", overlap)):
+        if r["launches"]["reproj_gram"] == 0 or r["launches"]["klt_level"] != 0:
+            fail(f"schedules, bearings {name}: launches {r['launches']} (K2 must run, K1 not)")
+        res[f"bearings_{name}"] = {k: v for k, v in r.items() if k != "window"}
+    print(f"schedules, bearings with PARSAC ({straight['frames']} frames): final window "
+          f"|d| {res['bearings_window_err']:.3e} (limit {SCHEDULE_WINDOW_TOL:g}); device "
+          f"syncs a frame {straight['syncs_per_frame']:.2f} straight, "
+          f"{overlap['syncs_per_frame']:.2f} overlapped; tracked {straight['tracked']} and "
+          f"{overlap['tracked']}", flush=True)
     return res
 
 
@@ -3001,7 +3171,20 @@ def main(argv=None) -> None:
         capi = phase("capi", capi_phase, dev, seq, dataset, tmp)
         ros = phase("ros_node", ros_phase, dev, dataset)
         ckpt = phase("checkpoint", checkpoint_phase, dev, seq, tmp)
-        bench = phase("benchmark", bench_phase, dev, os.path.join(tmp, "bench"))
+        # phase 12b's drives start in processes of their own, and phase
+        # 12's timed pass beside them once the pipelined process is warm
+        t = time.perf_counter()
+        pool, manager, futures = start_schedules(dev, os.path.join(tmp, "bench"))
+        phase_s["schedules_start"] = time.perf_counter() - t
+        try:
+            bench = phase("benchmark", bench_phase, dev, os.path.join(tmp, "bench"))
+            t = time.perf_counter()
+            sched = schedules_phase(bench, *(f.result(timeout=OBJECT_TIMEOUT_S)
+                                             for f in futures))
+            phase_s["schedules_wait"] = time.perf_counter() - t
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+            manager.shutdown()
         mseq = phase("multiseq", multiseq_phase, dev, os.path.join(tmp, "multiseq"))
 
     # one record per kernel, from its main-path entry (K1's and K2's
@@ -3028,6 +3211,11 @@ def main(argv=None) -> None:
                             "checkpoint_parsac": ckpt["parsac"]["launches"][k.name],
                             "checkpoint_images": ckpt["image"]["launches"][k.name],
                             "benchmark": bench["launches"][k.name],
+                            "schedules_pipelined": sched["pipelined"]["launches"][k.name],
+                            "schedules_bearings_straight":
+                                sched["bearings_straight"]["launches"][k.name],
+                            "schedules_bearings_overlap":
+                                sched["bearings_overlap"]["launches"][k.name],
                             "capi": capi["launches"][k.name],
                             "ros_node": ros["launches"][k.name],
                             "multiseq_sequential": mseq["sequential"]["launches"][k.name],
@@ -3068,7 +3256,9 @@ def main(argv=None) -> None:
                        "visual_pnp_drive": pnp_drive, "mobile_drive": mobile,
                        "object_drive": obj,
                        "dataset_drive": dataset, "localizer_drive": loc,
-                       "validator": valid, "checkpoint": ckpt, "benchmark": bench,
+                       "validator": valid, "checkpoint": ckpt,
+                       "benchmark": {k: v for k, v in bench.items() if k != "run"},
+                       "schedules": sched,
                        "sharded": shard, "run_scaling": scaling,
                        "nullspace_basis": bases, "phase_seconds": phase_s,
                        "seconds": time.perf_counter() - t_start,

@@ -24,7 +24,7 @@ from xrslam_tpu_torch.tools.make_dataset import render_dataset
 
 BENCH_KEYS = {"metric", "frames_per_s", "unit", "device", "card", "frames",
               "pass_frames_per_s", "warmup_passes", "frames_tracked", "ate_rmse_m",
-              "latency_ms", "timings_ms", "dataset"}
+              "latency_ms", "timings_ms", "dataset", "schedule"}
 
 
 @pytest.fixture(autouse=True)
@@ -49,6 +49,7 @@ def test_bench_pipeline_line_and_render_cache(tmp_path, capsys):
     out = _bench(tmp_path, capsys)
     assert set(out) == BENCH_KEYS
     assert out["device"] == "cpu" and out["card"] is None and out["frames"] == 8
+    assert out["schedule"] == "sync"
     assert len(out["pass_frames_per_s"]) == 2
     assert out["frames_per_s"] == out["pass_frames_per_s"][1] > 0
     assert out["frames_tracked"] == 0  # 8 frames: still initializing
@@ -101,3 +102,16 @@ def test_bench_pipeline_one_timed_pass(tmp_path, capsys):
     with pytest.raises(SystemExit):
         bench_pipeline.main(["--frames", "8", "--passes", "1", "--device", "cpu",
                              "--dir", str(tmp_path)])
+
+
+def test_bench_pipeline_schedule(tmp_path, capsys):
+    """--schedule pipelined runs the two-frame lag; `bench` returns the
+    reported pass with its final window after flush."""
+    out = _bench(tmp_path, capsys, "--warmup", "0", "--schedule", "pipelined", passes="1")
+    assert out["schedule"] == "pipelined" and out["frames_per_s"] > 0
+    line, best = bench_pipeline.bench(["--frames", "8", "--passes", "1", "--warmup", "0",
+                                       "--device", "cpu", "--dir", str(tmp_path)])
+    assert line["schedule"] == "sync" and best["window"] == []  # not yet tracking
+    assert len(best["ts"]) == line["frames_tracked"] == 0
+    with pytest.raises(SystemExit):
+        bench_pipeline.main(["--schedule", "chained", "--device", "cpu"])

@@ -125,9 +125,10 @@ def drive(pipe, inputs, k0: int, k1: int):
 
 
 def tail_error(ref, out, t_cut: float) -> float:
-    """Largest position difference over the frames after `t_cut`, matched
-    by time."""
-    ref = {t: p for t, p in ref if t > t_cut}
+    """Largest position difference over the outputs from `t_cut` on,
+    matched by time (with deferred write-backs the first output after a
+    cut is the anchor at the cut's frame)."""
+    ref = {t: p for t, p in ref if t >= t_cut}
     out = dict(out)
     assert len(ref) >= 5 and set(ref) == set(out), (sorted(ref), sorted(out))
     return max(float(np.linalg.norm(ref[t] - out[t])) for t in ref)

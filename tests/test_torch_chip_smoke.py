@@ -42,6 +42,7 @@ wrappers.
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -232,6 +233,46 @@ def test_bench_phase_rehearsal(monkeypatch, tmp_path):
         res["latency_ms"]["median"] > 0
     # one pass of 43 processed frames: 42 frame pairs
     assert res["frame_pairs_tracked"] == 42 == res["launches"]["klt_level"]
+
+
+@pytest.mark.slow
+def test_schedules_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 12b's drives and checks in this process, on the CPU at the
+    card's 752x480 (at 320x240 the scene tracks at ATE 0.15 m, and the
+    two-frame lag's published poses part by 5 cm) on 44 frames, and the
+    bearing scene on 34: the synchronous benchmark pass, the pipelined
+    one held to it (tracked, last output time, final window, positions,
+    kernels), and the bearing drives with PARSAC straight and
+    overlapped. (On the card the drives run in processes of their own,
+    `start_schedules`, whose kernel wrappers this test could not
+    replace.)"""
+    counting_plain_kernels(monkeypatch)
+    dev = torch.device("cpu")
+    size = dict(frames=44, width=752, height=480, focal=458.0, min_share=0.2)
+    sync = chip_smoke.bench_phase(dev, str(tmp_path), **size)
+    pipe = chip_smoke.bench_phase(dev, str(tmp_path), schedule="pipelined", **size)
+    res = chip_smoke.schedules_phase(sync, pipe, *(chip_smoke.schedule_bearing_run(dev, o, 34)
+                                                   for o in (False, True)))
+    assert res["window_err"] <= chip_smoke.SCHEDULE_WINDOW_TOL
+    assert res["pos_err_m"] < chip_smoke.SCHEDULE_POS_TOL_M and res["common_outputs"] >= 5
+    assert res["pipelined"]["frame_pairs_tracked"] == 42 == \
+        res["pipelined"]["launches"]["klt_level"]
+    assert res["bearings_window_err"] <= chip_smoke.SCHEDULE_WINDOW_TOL
+    assert res["bearings_overlap"]["launches"]["klt_level"] == 0
+    assert res["bearings_overlap"]["launches"]["reproj_gram"] > 0
+
+
+def test_compare_windows():
+    """Phase 12b's window check: equal windows pass with their largest
+    difference; other frames, or a difference beyond 1e-9, fail the
+    run."""
+    q, p, v = np.array([1.0, 0, 0, 0]), np.zeros(3), np.zeros(3)
+    a = [(0.1, q, p, v), (0.2, q, p + 1.0, v)]
+    b = [(0.1, q, p, v), (0.2, q, p + 1.0 + 5e-10, v)]
+    assert chip_smoke.compare_windows("w", a, b) == pytest.approx(5e-10, abs=1e-15)
+    for other in ([(0.1, q, p, v)], [(0.1, q, p, v), (0.2, q, p + 1.0 + 2e-9, v)], []):
+        with pytest.raises(SystemExit):
+            chip_smoke.compare_windows("w", a if other else [], other)
 
 
 def test_factor_gram_batch_phase_rehearsal(monkeypatch):

@@ -684,3 +684,31 @@ def test_budget_calibration_syncs_only_at_start_up(dev, monkeypatch):
         samples = swt._solve_samples[variant]
         assert len(samples) == 3 and swt._iter_seconds[variant] == sorted(samples)[1] > 0
     assert swt.stats["budget_syncs"] == len(syncs) == 9
+
+
+def test_packed_read_is_pinned_and_asynchronous(dev):
+    """`utils.fetch`: a handle's copy goes into pinned memory and returns
+    before its event completes (queued behind a long matrix product), and
+    every dtype lands bit-equal to a plain `.cpu()`."""
+    from xrslam_tpu_torch.utils.fetch import fetch_packed_start
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"f64": torch.randn((5, 3), dtype=torch.float64, device=dev, generator=g),
+            "f32": torch.randn((7,), device=dev, generator=g),
+            "i64": torch.randint(-2 ** 62, 2 ** 62, (3,), device=dev, generator=g),
+            "b": torch.rand((9,), device=dev, generator=g) > 0.5,
+            "none": None, "empty": torch.zeros((0, 4), device=dev)}
+    a = torch.randn((4096, 4096), device=dev, generator=g)
+    torch.cuda.synchronize(dev)
+    for _ in range(8):
+        a = a @ a / 64.0
+    h = fetch_packed_start(tree)
+    assert not h.ready(), "the copy waited for the device"
+    assert h._host.is_pinned()
+    out = h.get()
+    assert h.ready() and h.arrived and out["none"] is None
+    for k, x in tree.items():
+        if x is not None:
+            ref = x.cpu().numpy()
+            assert out[k].dtype == ref.dtype and out[k].shape == ref.shape
+            assert out[k].tobytes() == ref.tobytes(), k

@@ -245,8 +245,8 @@ class _DepthTracker(SyntheticTracker):
         super().__init__(**kw)
         self.depth_by_t = depth_by_t
 
-    def track_frame(self, tracker_map, frame):
-        super().track_frame(tracker_map, frame)
+    def track_frame(self, tracker_map, frame, **kw):
+        super().track_frame(tracker_map, frame, **kw)
         hint = frame._hint
         z = self.depth_by_t[round(frame.t, 6)]
         frame.kp_depth = np.where(hint >= 0, z[np.maximum(hint, 0)], 0.0)
@@ -350,6 +350,7 @@ def test_depth_keyframe_step_matches_jax():
     ts.marg = copy.deepcopy(snap["marg"])
     ts._pred_frame = next(f for f in t_map.frames if f.id == snap["pred"])
     assert ts.track()
+    ts.materialize_pending()
     assert ts.stats["depth_keyframes"] == 1 and ts.stats["depth_seeded"] > 0
     # JAX, from the same state
     j_map = _as_jax_map(snap["map"])

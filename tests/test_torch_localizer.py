@@ -27,10 +27,12 @@ import io
 import json
 import logging
 import threading
+import types
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import jax
 import jax.numpy as jnp
+
 import numpy as np
 import pytest
 import torch
@@ -418,7 +420,9 @@ def test_localizer_query_follows_config(enabled):
             return False
 
     pipe.set_localizer(Spy(cfg, matcher=None, device="cpu"))
-    pipe.swt = object()  # tracking; the decimation keeps the backend idle
+    # tracking; the decimation keeps the backend idle (no write-back to
+    # ride the tracker's read)
+    pipe.swt = types.SimpleNamespace(collect_riders=lambda: [])
     pipe._frame_count = 1
     pipe._prop = dict(t=0.0, q=np.array([1.0, 0, 0, 0]), p=np.array([1.0, 2, 3]),
                       v=np.zeros(3), bg=np.zeros(3), ba=np.zeros(3))

@@ -194,8 +194,8 @@ def _unsplit_fused_subframe_step(self, target):
 N_DRIVE = 26  # the backend starts at frame 14; 9 subframe steps
 
 
-def _bearing_drive(broker=None):
-    cfg = make_config()
+def _bearing_drive(broker=None, **cfg_kw):
+    cfg = make_config().replace(**cfg_kw)
     pipe = VIOPipeline(cfg, SyntheticTracker(device="cpu"), device="cpu")
     inputs = scene_inputs(cfg)
     outs, subframes = [], [0]
@@ -214,14 +214,20 @@ def _bearing_drive(broker=None):
 
 
 def test_split_subframe_step_unchanged(monkeypatch):
-    new, _ = _bearing_drive()
+    # the step before its split wrote back at once: compare the two with
+    # write-backs at once
+    sync = dict(deferred_subframe_write=False)
+    new, _ = _bearing_drive(**sync)
     monkeypatch.setattr(sw.SlidingWindowTracker, "_fused_subframe_step",
                         _unsplit_fused_subframe_step)
-    ref, _ = _bearing_drive()
+    ref, _ = _bearing_drive(**sync)
     assert len(new) == len(ref) > 5
     for (ta, pa), (tb, pb) in zip(ref, new):
         assert ta == tb and np.array_equal(pa, pb)
     monkeypatch.undo()
+    # the broker's batched solve against the step, both with deferred
+    # write-backs (the default)
+    ref, _ = _bearing_drive()
     broker = multiseq.ChainedSolveBroker(1)
     batched, n_sub = _bearing_drive(broker)
     assert n_sub > 0 and broker.batched_calls == n_sub

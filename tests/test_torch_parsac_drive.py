@@ -381,8 +381,11 @@ def test_synthetic_tracker_no_translation_matches_jax():
 
 def test_visual_pnp_publishes_camera_rate_poses():
     """`tests/test_visual_pnp.py`'s scene (the first 64 landmarks of the
-    committed 500 draw; the backend every 2nd frame): the PnP pose is
-    published on every tracked frame, at the frame's time."""
+    committed 500 draw; the backend every 2nd frame): the PnP pose runs on
+    every tracked frame and stays published, at the frame's time, on every
+    frame the backend skips; on a backend frame the backend's anchor (its
+    deferred write-back: one solve back, as in the JAX package) replaces
+    it."""
     cfg = osc.base_config(visual_pnp_enable=True, sliding_window_tracker_frequent=2)
     scene = synthetic.euler_consistent(synthetic.wave_scene(n_frames=36))
     scene = scene._replace(landmarks=scene.landmarks[:64])
@@ -392,13 +395,17 @@ def test_visual_pnp_publishes_camera_rate_poses():
     pipe = VIOPipeline(cfg, SyntheticTracker(device="cpu"), device="cpu")
     at_frame = []
 
+    tracked = [0]
+
     def on_frame(k, p):
         if p.state == "tracking":
-            at_frame.append(abs(p._prop["t"] - float(scene.t[k])) < 1e-9)
+            tracked[0] += 1
+            if (p.frames_processed - 1) % 2:  # the backend skipped it
+                at_frame.append(abs(p._prop["t"] - float(scene.t[k])) < 1e-9)
 
     est_t, est_p = osc.drive(pipe, sc, on_frame=on_frame)
-    assert len(at_frame) >= 10 and all(at_frame)
-    assert pipe.pnp_frames >= len(at_frame) - 1
+    assert len(at_frame) >= 5 and all(at_frame)
+    assert pipe.pnp_frames >= tracked[0] - 1
     assert osc.scene_ate(sc, est_t, est_p) < 0.01
 
 

@@ -48,7 +48,12 @@ FLOAT_ATOL = 1e-10
 def short_drive() -> dict:
     """Tracked output poses and the last frame's state of the drive."""
     seq = render_sequence(n_frames=SHORT_FRAMES)
-    slam = api.XRSLAM(config=seq["config"].replace(parsac_flag=False), device="cpu")
+    # the file was written under the synchronous anchor (each solve
+    # written back at once), before deferred write-backs became the
+    # default: published poses one solve ahead of the deferred schedule's
+    slam = api.XRSLAM(config=seq["config"].replace(parsac_flag=False,
+                                                   deferred_subframe_write=False),
+                      device="cpu")
     ts, ps = run_sequence(api, slam, seq, max_frames=SHORT_FRAMES)
     f = slam.pipeline.swt.last_frame_chain()
     return {"ts": ts, "ps": ps, "q": f.q, "p": f.p, "v": f.v, "bg": f.bg, "ba": f.ba}

@@ -1,7 +1,8 @@
 """The solver time budget (`Config.solver_time_limit`, the reference's
 Ceres `max_solver_time_in_seconds`, solver.cpp:186) of the port's
 `core/sliding_window.py` held to the JAX package's, on the CPU in
-float64; and the JAX package's schedule flags, which the port refuses.
+float64; and the schedule flags: `chained_frontend` and a depth image under
+`pipelined_writeback` refused, the overlapped schedules driven.
 
 - (a) `_budgeted_iterations` and `_budget_chained` over one grid of
   limit, estimate, iteration limit and localize share (the cases of
@@ -255,9 +256,26 @@ def test_window_below_initializer_keyframes():
     assert sizes and sizes[0] >= 8 and sizes[-1] <= 5, sizes
 
 
-@pytest.mark.parametrize("flag", VIOPipeline.UNPORTED_SCHEDULES)
-def test_unported_schedule_flags_refused(flag):
-    with pytest.raises(ValueError, match=f"{flag}.*ROADMAP.md"):
-        VIOPipeline(Config(**{flag: True}), SyntheticTracker(device="cpu"),
-                    device="cpu")
-    VIOPipeline(Config(**{flag: False}), SyntheticTracker(device="cpu"), device="cpu")
+@pytest.mark.parametrize("case", ["chained_frontend", "overlap_pipelined", "depth_pipelined"])
+def test_schedule_flags(case):
+    """chained_frontend is refused; worker_overlap and
+    pipelined_writeback construct and drive three frames; a depth image
+    under the two-frame schedule is refused."""
+    cpu = dict(device="cpu")
+    if case == "chained_frontend":
+        assert VIOPipeline.UNPORTED_SCHEDULES == ("chained_frontend",)
+        with pytest.raises(ValueError, match="chained_frontend.*ROADMAP.md"):
+            VIOPipeline(Config(chained_frontend=True), SyntheticTracker(**cpu), **cpu)
+        VIOPipeline(Config(chained_frontend=False), SyntheticTracker(**cpu), **cpu)
+        return
+    cfg = make_config().replace(worker_overlap=True, pipelined_writeback=True)
+    pipe = VIOPipeline(cfg, SyntheticTracker(**cpu), **cpu)
+    if case == "overlap_pipelined":
+        drive(pipe, scene_inputs(cfg), 0, 3)
+        assert pipe.frames_processed == 3 and len(pipe._issue_queue) == 1
+        pipe.flush()
+        assert not pipe._issue_queue
+        return
+    with pytest.raises(ValueError, match="depth input is refused with pipelined_writeback"):
+        pipe.track_camera_image(0.0, np.zeros((8, 8), np.float32),
+                                depth=np.ones((8, 8), np.float32))

@@ -137,6 +137,8 @@ class XRSLAM:
         self._note_output(self.pipeline.predict_pose(self.pipeline.last_imu_t))
 
     def flush(self) -> None:
+        """Complete the deferred work at the end of a stream: the last
+        frame's tracking, backend stage and write-back."""
         self.pipeline.flush()
 
     def get_result(self, result_type: ResultType):

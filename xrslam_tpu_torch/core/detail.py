@@ -1,5 +1,5 @@
-"""Sample synchronization + pipeline driver (port of the synchronous
-path of `xrslam_tpu/core/detail.py`):
+"""Sample synchronization + pipeline driver (port of
+`xrslam_tpu/core/detail.py`):
 
   - gyroscope and accelerometer streams are paired by interpolating the
     gyro to each accelerometer timestamp,
@@ -20,6 +20,23 @@ path of `xrslam_tpu/core/detail.py`):
     global transform every output pose is mapped through it. An
     `HttpLocalizer` is installed when a server port is configured;
     `set_localizer` installs another (a `MapLocalizer`).
+
+The schedules (the reference's threaded backend, `frontend_worker.cpp`,
+where the backend lags the tracker by one frame):
+  - synchronous (default): each frame's backend stage runs at the end of
+    its own push; the backend's pending write-backs ride the tracker's
+    read;
+  - `worker_overlap` (one-frame lag): frame t's backend stage runs inside
+    frame t+1's push, between the tracker's dispatch and its read, and
+    its fresh write-back rides that read;
+  - `worker_overlap` + `pipelined_writeback` (two-frame lag, PARSAC
+    off): the pending write-backs are collected first and ride the
+    tracker's read, which starts before the backend stage of the queue's
+    head runs; up to two solves stay in flight
+    (`sliding_window.writeback_depth`).
+`flush()` completes the deferred work at the end of a stream. The solves
+take the same values under every schedule; the published poses differ
+by when their anchor moves. `chained_frontend` is not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +54,7 @@ from ..utils.timing import StageTimes
 from . import nputil
 from .initializer import Initializer
 from .map import FrameRec, PipelineMap, new_frame_id
-from .sliding_window import SlidingWindowTracker
+from .sliding_window import SlidingWindowTracker, writeback_depth
 
 GRAVITY = np.array([0.0, 0.0, -9.80665])
 
@@ -64,18 +81,16 @@ class VIOPipeline:
     """Push IMU + camera samples, get poses. Runs on the card unless
     `device="cpu"` is asked for."""
 
-    # the JAX package's schedules that hide its TPU's host link; the port
-    # runs the synchronous schedule, whose outputs differ from
-    # worker_overlap's one-frame backend lag, so each is refused
-    UNPORTED_SCHEDULES = ("worker_overlap", "pipelined_writeback", "chained_frontend")
+    # the JAX package's device-chained KLT frontend (EXPERIMENTAL there)
+    UNPORTED_SCHEDULES = ("chained_frontend",)
 
     def __init__(self, config: Config, tracker, device="cuda",
                  times: Optional[StageTimes] = None):
         for flag in self.UNPORTED_SCHEDULES:
             if getattr(config, flag):
                 raise ValueError(
-                    f"Config.{flag}=True is not ported: xrslam_tpu_torch runs the "
-                    "synchronous schedule only (ROADMAP.md, queue 1, 'Left behind')")
+                    f"Config.{flag}=True is not ported to xrslam_tpu_torch "
+                    "(ROADMAP.md, queue 1, 'Left behind')")
         self.config = config
         self.tracker = tracker
         self.device = compute_device(device)
@@ -107,6 +122,9 @@ class VIOPipeline:
         # the number of frames whose PnP pose was published
         self._keymap: dict = {}
         self.pnp_frames = 0
+        # worker_overlap: frames tracked whose backend stage runs inside a
+        # later push
+        self._issue_queue: List[FrameRec] = []
 
     def set_localizer(self, localizer) -> None:
         """Install a visual-localization backend (`MapLocalizer` or
@@ -168,7 +186,13 @@ class VIOPipeline:
         fills the keypoint slots when the frame is processed. `depth`
         optionally carries an aligned metric depth image ((H,W) float32
         metres, 0 = invalid), sampled at the keypoints into
-        `FrameRec.kp_depth`."""
+        `FrameRec.kp_depth`. Refused under the two-frame schedule."""
+        if depth is not None and writeback_depth(self.config) == 2:
+            raise ValueError(
+                "depth input is refused with pipelined_writeback: the JAX package's "
+                "depth-camera keyframe path triangulates from host poses that a "
+                "pending solve has not written yet, one solve stale "
+                "(xrslam_tpu/core/sliding_window.py:561-569; ROADMAP.md, queue 3)")
         f = self._make_frame(t, np.zeros((self.tracker.capacity, 3)))
         f._image = np.asarray(image, dtype=np.float32)
         f._depth_img = depth
@@ -223,11 +247,37 @@ class VIOPipeline:
         frame._detect_tag = issue
         image = getattr(frame, "_image", None)  # the tracker releases it
         self.tracker_map.attach_frame(frame)
+        cfg = self.config
+        rider = between = None
+        if cfg.worker_overlap and writeback_depth(cfg) == 2:
+            # two-frame lag: the pending write-backs ride the tracker's
+            # read, which starts before the queue head's backend stage
+            if self.swt is not None:
+                rider = self.swt.collect_riders()
+
+            def between():
+                if self._issue_queue:
+                    with self.times.stage("backend_overlap_time"):
+                        self._issue_frame(self._issue_queue.pop(0))
+        elif cfg.worker_overlap:
+            # one-frame lag: the queued backend stage runs between the
+            # tracker's dispatch and its read; its write-back rides it
+            def between():
+                with self.times.stage("backend_overlap_time"):
+                    self._run_deferred_issue()
+                return None if self.swt is None else self.swt.collect_riders()
+        elif self.swt is not None:
+            rider = self.swt.collect_riders()
         with self.times.stage("feature_tracker_time"):
-            self.tracker.track_frame(self.tracker_map, frame)
-        if self.swt is not None and self.config.visual_pnp_enable:
-            with self.times.stage("visual_pnp_time"):
-                self._solve_pnp_highrate(frame)
+            self.tracker.track_frame(self.tracker_map, frame, rider=rider,
+                                     between=between)
+        if self.swt is not None and cfg.visual_pnp_enable:
+            # a pipelined tracker returns with `frame` in flight: PnP runs
+            # on the newest frame it completed
+            f_pnp = frame if self.tracker._pending is None else self.tracker.last_finished
+            if f_pnp is not None:
+                with self.times.stage("visual_pnp_time"):
+                    self._solve_pnp_highrate(f_pnp)
         # throttled visual-localization query while tracking, with the
         # frame's image and its SLAM-frame pose
         if (self.localizer is not None and self.swt is not None
@@ -243,8 +293,15 @@ class VIOPipeline:
         while len(self.tracker_map.frames) > cap:
             self.tracker_map.detach_frame(0)
         if issue:
-            with self.times.stage("backend_time"):
-                self._issue_frame(frame)
+            if cfg.worker_overlap:
+                self._issue_queue.append(frame)
+            else:
+                with self.times.stage("backend_time"):
+                    self._issue_frame(frame)
+
+    def _run_deferred_issue(self):
+        while self._issue_queue:
+            self._issue_frame(self._issue_queue.pop(0))
 
     def _issue_frame(self, frame: FrameRec):
         if self.swt is None:
@@ -264,7 +321,13 @@ class VIOPipeline:
                                                times=self.times)
 
     def flush(self) -> None:
-        """The synchronous pipeline holds no deferred work."""
+        """Complete the deferred work at the end of a stream: the
+        tracker's frame in flight, the queued backend stages, the
+        pending write-backs."""
+        self.tracker.finish_pending()
+        self._run_deferred_issue()
+        if self.swt is not None:
+            self.swt.materialize_pending()
 
     def _refresh_prop_state(self):
         t, q, p, v, bg, ba = self.swt.get_latest_state()
@@ -403,8 +466,19 @@ class SyntheticTracker:
         self.device = compute_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0 if config is None else int(config.random))
+        # a frame is complete when track_frame returns
+        self._pending = None
+        self.last_finished: Optional[FrameRec] = None
 
-    def track_frame(self, tracker_map: PipelineMap, frame: FrameRec) -> None:
+    def finish_pending(self) -> None:
+        """Nothing is ever in flight."""
+
+    def track_frame(self, tracker_map: PipelineMap, frame: FrameRec,
+                    rider=None, between=None) -> None:
+        """`rider` is ignored (this tracker reads nothing from the
+        device); `between` runs at once: there is no read to overlap."""
+        if between is not None:
+            between()
         hint = getattr(frame, "_hint", None)
         if hint is None:
             return
@@ -440,3 +514,4 @@ class SyntheticTracker:
                     self.generator, bp, bn, valid, self.config):
                 frame.no_translation = True
         self._prev = frame
+        self.last_finished = frame

@@ -23,10 +23,25 @@ Under a `Config.solver_time_limit` below 1e5 s every solve's iteration
 count is budgeted from its variant's measured time an iteration
 (`_note_solve`, `_budgeted_iterations`, `_budget_chained`).
 
-Every write-back is applied immediately (the port has no deferred
-write-back pipeline). The PARSAC stage reads the device at most twice a
-frame: the judge's inlier mask together with the IMU-predicted pose, and
-all of update_track_status's masks stacked.
+With `Config.deferred_subframe_write` (the default) a solve's result is
+not read when the solve is dispatched: its write-back is queued with a
+packed copy in flight (`window_builder.write_back_start`) and lands at
+the next frame's mirror_frame, or sooner when it is due. Meanwhile
+`get_latest_state` returns the anchor: the newest state the host records
+held solved when the solve was queued, so that published poses are
+IMU-propagated from one solve back, the reference's threaded output
+path. Under `worker_overlap` + `pipelined_writeback` with PARSAC off
+(`writeback_depth` 2) a subframe step's solve may stay in flight into
+the next extraction, which then takes the values that its write-back
+would land from that solve's device state (`_inject_solved`); a
+keyframe step's write-back, which also sets track flags and world
+points, lands before the next extraction. So every schedule's solves
+take the values the synchronous schedule gives them (the JAX package's
+two-frame schedule does not, ROADMAP.md queue 3).
+
+The PARSAC stage reads the device at most twice a frame: the judge's
+inlier mask together with the IMU-predicted pose, and all of
+update_track_status's masks stacked.
 """
 
 from __future__ import annotations
@@ -49,11 +64,24 @@ from ..imu import preintegration as pre
 from ..ransac import parsac as parsac_mod
 from ..ransac import pnp as pnp_mod
 from ..ransac import stereo as stereo_mod
+from ..utils.fetch import fetch_packed, fetch_packed_start
 from ..utils.timing import StageTimes
 from . import nputil
 from .map import FrameRec, PipelineMap
 from .window_builder import (extract_window, interval_samples,
-                             needed_imu_cap, triangulate_track, write_back)
+                             needed_imu_cap, triangulate_track, write_back,
+                             write_back_start)
+
+
+def writeback_depth(config: Config) -> int:
+    """Solves whose write-back may be in flight at once: 2 under the
+    two-frame schedule (worker_overlap + pipelined_writeback with
+    deferred write-backs and PARSAC off; PARSAC reads the refined pose
+    on the host every frame), else 1. Depth 1 holds with PARSAC too:
+    mirror_frame lands every pending write before the judge runs."""
+    return 2 if (config.pipelined_writeback and config.worker_overlap
+                 and config.deferred_subframe_write
+                 and not config.parsac_flag) else 1
 
 
 def _predict_slot(state, data, idx: int):
@@ -79,6 +107,28 @@ def _predict_slot(state, data, idx: int):
     return state._replace(q=upd(state.q, q_b, q_prev), p=upd(state.p, p_b, p_prev),
                           v=upd(state.v, vj, v_prev), bg=upd(state.bg, bg_prev, bg_prev),
                           ba=upd(state.ba, ba_prev, ba_prev))
+
+
+def _normalize_rows(q: torch.Tensor) -> torch.Tensor:
+    """Each row of q (N,4) over its norm, the sum of squares taken in
+    index order as `nputil.quat_normalize`'s numpy norm takes it."""
+    sq = q[:, 0] * q[:, 0]
+    for i in range(1, 4):
+        sq = sq + q[:, i] * q[:, i]
+    return q / torch.sqrt(sq)[:, None]
+
+
+def _inject_frames(state, pend, fmap, fmask):
+    """`state` with the frame slots under `fmask` replaced by the pending
+    solve `pend`'s slots `fmap`, the rotations normalized as write_back
+    normalizes them. Fixed-shape maps: one gather and one select a
+    field."""
+    def pick(dst, src):
+        return torch.where(fmask[:, None], src.index_select(0, fmap).to(dst.dtype), dst)
+
+    return state._replace(q=pick(state.q, _normalize_rows(pend.q)), p=pick(state.p, pend.p),
+                          v=pick(state.v, pend.v), bg=pick(state.bg, pend.bg),
+                          ba=pick(state.ba, pend.ba))
 
 
 class SlidingWindowTracker:
@@ -121,6 +171,20 @@ class SlidingWindowTracker:
         self.m_th = 0.0
         self._tracker_map: Optional[PipelineMap] = None
         self._pred_parsac = None
+        # deferred write-backs (Config.deferred_subframe_write): a FIFO of
+        # queued solves, each with its read in flight; the output anchor
+        # (t, q, p, v, bg, ba) published while one is pending; a staged
+        # localize result of the lifted-subframe keyframe cases; the
+        # depth path's localize result (localize_newframe(defer_write))
+        self._pending_writes: list = []
+        self._copied_from = None   # (new frame, the frame its host values copy)
+        self._latest_solved = None
+        self._pending_loc = None
+        self._loc_result = None
+        # set while a solve waits in the solve_broker: the window's
+        # newest frame holds no solved values yet
+        self._in_broker = False
+        self.max_pending = writeback_depth(config)
         self.stats = {
             "tracks_unstatic": 0,     # tracks losing TT_STATIC via PARSAC
             "judge_calls": 0,         # judge_track_status calls
@@ -236,15 +300,157 @@ class SlidingWindowTracker:
         return kf.subframes[-1] if kf.subframes else kf
 
     def get_latest_state(self):
-        """Latest optimized state (t, q, p, v, bg, ba)."""
+        """Latest optimized state (t, q, p, v, bg, ba). While a write-back
+        is pending (or a solve waits in the broker) this is the anchor,
+        one solve back; the pipeline IMU-propagates past it."""
+        if (self._pending_writes or self._in_broker) and self._latest_solved is not None:
+            return self._latest_solved
         f = self.last_frame_chain()
         return f.t, f.q, f.p, f.v, f.bg, f.ba
+
+    @staticmethod
+    def _snapshot(f: FrameRec):
+        return f.t, f.q.copy(), f.p.copy(), f.v.copy(), f.bg.copy(), f.ba.copy()
+
+    # ------------------------------------------------------------------
+    # deferred write-backs
+    # ------------------------------------------------------------------
+    def _apply_write(self, pend: dict) -> None:
+        out = write_back(self.map, pend["st"], pend["meta"],
+                         write_landmarks=pend.get("write_landmarks", False),
+                         extra=pend.get("extra"), prefetched=pend["pf"])
+        if self._copied_from and self._copied_from[0] in pend["meta"].frames:
+            self._copied_from = None
+        # the anchor moves to the newest frame this write solved
+        newest = None
+        for f in pend["meta"].frames:
+            if not (f.fix_pose and f.fix_motion) and (newest is None or f.t > newest.t):
+                newest = f
+        if newest is not None:
+            self._latest_solved = self._snapshot(newest)
+        cb = pend.get("cb")
+        if cb is not None:
+            cb(out)
+
+    def materialize_pending(self) -> None:
+        """Land every deferred write-back, oldest first; the staged
+        localize result lands first, so that a window write of the same
+        frame wins."""
+        self._materialize_loc()
+        while self._pending_writes:
+            self._apply_write(self._pending_writes.pop(0))
+
+    def _materialize_for_mirror(self) -> None:
+        """mirror_frame's landing rule: every pending write whose read
+        has arrived (it rode a completed tracker read) lands without a
+        wait; then the oldest land, waiting if they must, until at most
+        max_pending - 1 remain and none of them is a keyframe step's.
+        Depth 1 lands them all. A keyframe step's write also sets track
+        flags and world points, which select and seed the next
+        extraction's landmarks, so under the two-frame schedule it lags
+        one frame, not two; the JAX package keeps it in flight
+        (xrslam_tpu/core/sliding_window.py:339-352), and its next solve
+        then takes another landmark set than the synchronous schedule
+        gives it."""
+        self._materialize_loc()
+        pend = self._pending_writes
+        while pend and pend[0]["pf"].arrived:
+            self._apply_write(pend.pop(0))
+        while len(pend) >= self.max_pending or any(w.get("cb") for w in pend):
+            self._apply_write(pend.pop(0))
+
+    def _queue_write(self, **pend) -> None:
+        self._pending_writes.append(pend)
+        while len(self._pending_writes) > self.max_pending:
+            self._apply_write(self._pending_writes.pop(0))
+
+    def _inject_solved(self, state, data, frames, meta):
+        """Correct an extraction from the solves whose write-back has not
+        landed (subframe steps under the two-frame schedule), so that the
+        solve starts from what the extraction after materialize_pending()
+        holds, on the device:
+        - every frame slot that a pending solve covers takes its state
+          (oldest solve first, so that the newest wins), and the newest
+          frame's slot, whose host values are mirror_frame's copy of its
+          predecessor's, that predecessor's;
+        - every landmark slot anchored on such a frame takes the inverse
+          depth from its world point and the anchor's landed position;
+        - every preintegration linearized at such a frame's biases is
+          integrated again at the landed ones.
+        The JAX package corrects only the first
+        (xrslam_tpu/core/sliding_window.py:359-413). Returns (state,
+        data)."""
+        if not self._pending_writes:
+            return state, data
+        dev = self.device
+        K = int(state.q.shape[0])
+        new_j, src = self._copied_from or (None, None)
+        covered = {f.id for pend in self._pending_writes for f in pend["meta"].frames}
+        # the frame whose pending state each slot takes
+        of = [src if f is new_j and f.id not in covered else f for f in frames]
+        injected = np.zeros((K,), bool)
+        for pend in self._pending_writes:
+            idx = {f.id: j for j, f in enumerate(pend["meta"].frames)}
+            fmap = np.array([idx.get(f.id, 0) for f in of] + [0] * (K - len(frames)))
+            fmask = np.array([f.id in idx for f in of] + [False] * (K - len(frames)))
+            if fmask.any():
+                injected |= fmask
+                state = _inject_frames(state, pend["st"], torch.as_tensor(fmap, device=dev),
+                                       torch.as_tensor(fmask, device=dev))
+        if not injected.any():
+            return state, data
+        slots = [l for l in range(len(meta.track_ids))
+                 if meta.landmark_mask[l] and injected[meta.ref_idx[l]]]
+        if slots:
+            p_w = np.stack([self.map.tracks[meta.track_ids[l]].p_w for l in slots])
+            ref = torch.as_tensor(meta.ref_idx[slots].astype(np.int64), device=dev)
+            p_wc = state.p.index_select(0, ref) + lie.quat_rotate(
+                state.q.index_select(0, ref), data.p_bc.index_select(0, ref))
+            rng = torch.linalg.vector_norm(
+                torch.as_tensor(p_w, dtype=p_wc.dtype, device=dev) - p_wc, dim=-1)
+            state = state._replace(inv_depth=state.inv_depth.index_copy(
+                0, torch.as_tensor(slots, device=dev), 1.0 / torch.clamp(rng, min=1e-9)))
+        # preintegration entry j is linearized at frame j-1's biases
+        lin = np.zeros((K,), bool)
+        lin[1:] = meta.preint_mask[1:] & injected[:-1]
+        if lin.any():
+            m = torch.as_tensor(lin, device=dev)[:, None]
+            bg_lin = torch.where(m, torch.roll(state.bg, 1, 0), data.bg_lin)
+            ba_lin = torch.where(m, torch.roll(state.ba, 1, 0), data.ba_lin)
+            tb, wb, ab, te, cnt, steps = meta.imu
+            data = data._replace(bg_lin=bg_lin, ba_lin=ba_lin, preint=pre.integrate_batch(
+                tb, wb, ab, te, bg_lin, ba_lin, self.noise, cnt, steps=steps))
+        return state, data
+
+    def _apply_loc(self, pf, target: FrameRec) -> None:
+        if self._copied_from and self._copied_from[0] is target:
+            self._copied_from = None
+        q, p, v, bg, ba = pf.get()
+        target.q, target.p, target.v = nputil.quat_normalize(q), p, v
+        target.bg, target.ba = bg, ba
+
+    def _materialize_loc(self) -> None:
+        """Land a staged localize result (lifted-subframe keyframe
+        cases)."""
+        pl, self._pending_loc = self._pending_loc, None
+        if pl is not None:
+            self._apply_loc(pl["pf"], pl["target"])
+
+    def collect_riders(self) -> list:
+        """The in-flight reads that should ride the tracker's next read
+        (pending write-backs, the staged localize result); each rides at
+        most one (the tracker marks it `riding`)."""
+        out = [] if self._pending_loc is None else [self._pending_loc["pf"]]
+        out += [pend["pf"] for pend in self._pending_writes]
+        return [h for h in out if not h.riding]
 
     # ------------------------------------------------------------------
     def mirror_frame(self, tracker_map: PipelineMap, frame_id: int) -> bool:
         """Pull the new frame from the tracker map: clone it, splice the
         IMU samples of skipped frames, extend tracks continuing from the
-        window's latest frame, stage the IMU prediction."""
+        window's latest frame, stage the IMU prediction. Due write-backs
+        land first (_materialize_for_mirror)."""
+        self._materialize_for_mirror()
         self._tracker_map = tracker_map
         frame_i = self.last_frame_chain()
         idx_i = tracker_map.frame_index_by_id(frame_i.id)
@@ -284,6 +490,9 @@ class SlidingWindowTracker:
         new_j.ba = frame_i.ba.copy()
         new_j.q, new_j.p = frame_i.q.copy(), frame_i.p.copy()
         new_j.v = frame_i.v.copy()
+        # the copy is stale while frame_i's write is pending: _inject_solved
+        # gives new_j's slot frame_i's pending state
+        self._copied_from = (new_j, frame_i)
         self._pred_parsac = None
         if self.config.parsac_flag:
             self._pred_parsac = self._stage_prediction(frame_i, new_j)
@@ -322,15 +531,10 @@ class SlidingWindowTracker:
         return [x.reshape(np.shape(a)) for x, a in zip(parts, arrays)]
 
     def _read(self, tensors):
-        """One device -> host read of several tensors (packed as float64);
-        returns numpy arrays, bool where the tensor was bool."""
+        """One packed device -> host read of several tensors (numpy
+        arrays of their dtypes)."""
         self.stats["parsac_host_reads"] += 1
-        flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
-        out = []
-        for t, a in zip(tensors, np.split(flat, np.cumsum([t.numel() for t in tensors])[:-1])):
-            a = a.reshape(tuple(t.shape))
-            out.append(a.astype(bool) if t.dtype == torch.bool else a)
-        return out
+        return list(fetch_packed(tuple(tensors)))
 
     def _land_prediction(self, extra=None):
         """Read the staged PARSAC prediction into its host record, with
@@ -356,8 +560,9 @@ class SlidingWindowTracker:
             if any(f.kp_depth is not None for f in self.map.all_frames()):
                 self.stats["depth_keyframes"] += 1
                 with self.times.stage("localize_newframe_time"):
-                    self.localize_newframe()
+                    self.localize_newframe(defer_write=True)
                 self.manage_keyframe(verdict)
+                self._materialize_localize()
                 self.track_landmark()
                 with self.times.stage("bundle_adjustor_solve_time"):
                     self.refine_window()
@@ -371,6 +576,7 @@ class SlidingWindowTracker:
             self.manage_keyframe(verdict)
             with self.times.stage("subwindow_solve_time"):
                 self._fused_subframe_step(target)
+        self._loc_result = None
         return True
 
     def _fused_keyframe_step(self, verdict: str) -> None:
@@ -378,6 +584,13 @@ class SlidingWindowTracker:
         VI-BA → landmark gates, then the write-back and flag updates."""
         l_state, l_data, l_meta, target, l_slot = self._prepare_localize()
         l_opts = SolveOptions(iterations=self._budgeted_iterations("localize"))
+        # the anchor while this write is pending: the temporally latest
+        # frame whose host record holds solved values (all but the target)
+        frames0 = self.map.frames
+        anchor = frames0[-1]
+        if len(frames0) >= 2:
+            anchor = frames0[-2].subframes[-1] if frames0[-2].subframes else frames0[-2]
+        anchor_state = self._snapshot(anchor)
         self.manage_keyframe(verdict)
         frames = list(self.map.frames)
         new_kf = frames[-1]
@@ -391,6 +604,7 @@ class SlidingWindowTracker:
             frames, self.K_slots,
             track_filter=lambda t: base_filter(t) or t.id in cand_ids,
             all_frames_between=self._kf_between(frames), imu_cap=128)
+        state, data = self._inject_solved(state, data, frames, meta)
         if self.marg is None:
             self.marg = MargPrior.gauge_fix(self.K_slots, self.L_slots, state)
         data = data._replace(marg=self.marg, use_marg=torch.ones(
@@ -423,29 +637,45 @@ class SlidingWindowTracker:
             landmark_mask=(data.landmark_mask | tri_ok) & gates[0])
         self._last_window = (st2, data_eff, meta)
         meta_eff = dataclasses.replace(meta, landmark_mask=meta.landmark_mask | cand_mask)
-        if not inject:
-            q, p, v, bg, ba = (x[l_slot].cpu().numpy()
-                               for x in (st1.q, st1.p, st1.v, st1.bg, st1.ba))
-            target.q, target.p, target.v = nputil.quat_normalize(q), p, v
-            target.bg, target.ba = bg, ba
-        (g_ok, _), t_ok = write_back(self.map, st2, meta_eff,
-                                     extra=(gates, tri_ok), write_landmarks=True)
-        for l, tid in enumerate(meta.track_ids):
-            if not cand_mask[l]:
-                continue
-            tr = self.map.tracks.get(tid)
-            if tr is None:
-                continue
-            if t_ok[l]:
-                tr.triangulated = tr.valid = tr.static = True
-                tr.life = max(tr.life, 1)
-            else:
-                tr.triangulated = tr.valid = False
-                tr.p_w = None
-        self._apply_landmark_gates(meta_eff, g_ok & (t_ok | ~cand_mask))
-        covered = {tid for l, tid in enumerate(meta.track_ids)
-                   if meta_eff.landmark_mask[l]}
-        self._revalidate_landmarks(frames, skip_ids=covered)
+
+        def apply_flags(extra_out):
+            # candidates keep their track only if triangulation and the
+            # post-solve gates accept them
+            (g_ok, _), t_ok = extra_out
+            for l, tid in enumerate(meta.track_ids):
+                if not cand_mask[l]:
+                    continue
+                tr = self.map.tracks.get(tid)
+                if tr is None:
+                    continue
+                if t_ok[l]:
+                    tr.triangulated = tr.valid = tr.static = True
+                    tr.life = max(tr.life, 1)
+                else:
+                    tr.triangulated = tr.valid = False
+                    tr.p_w = None
+            self._apply_landmark_gates(meta_eff, g_ok & (t_ok | ~cand_mask))
+            covered = {tid for l, tid in enumerate(meta.track_ids)
+                       if meta_eff.landmark_mask[l]}
+            self._revalidate_landmarks(frames, skip_ids=covered)
+
+        # lifted-subframe cases: the target is not a window slot; its
+        # host record takes the localized state
+        pf_loc = None if inject else fetch_packed_start(
+            tuple(x[l_slot] for x in (st1.q, st1.p, st1.v, st1.bg, st1.ba)))
+        if self.config.deferred_subframe_write:
+            if self._latest_solved is None or not self._pending_writes:
+                self._latest_solved = anchor_state
+            self._queue_write(st=st2, meta=meta_eff, extra=(gates, tri_ok),
+                              pf=write_back_start(st2, (gates, tri_ok)),
+                              cb=apply_flags, write_landmarks=True)
+            if pf_loc is not None:
+                self._pending_loc = dict(pf=pf_loc, target=target)
+        else:
+            if pf_loc is not None:
+                self._apply_loc(pf_loc, target)
+            apply_flags(write_back(self.map, st2, meta_eff, extra=(gates, tri_ok),
+                                   write_landmarks=True))
 
     def prepare_fused_subframe(self, target: FrameRec) -> dict:
         """Host half of the fused subframe step: subwindow extraction and
@@ -489,12 +719,22 @@ class SlidingWindowTracker:
     def finish_fused_subframe(self, ctx: dict, st2) -> None:
         """Apply a fused subframe solve's result: time it for the budget
         (from ctx["t0"], set where the solve began), restore the
-        keyframe's fix flags, write the subwindow back."""
+        keyframe's fix flags, queue the subwindow's write-back (or write
+        it back at once without deferred write-backs)."""
         if self._limit_active():
             self._note_solve(ctx["chain_key"], st2, ctx["l_opts"].iterations
                              + ctx["s_opts"].iterations, ctx["t0"])
+        self._in_broker = False
         ctx["kf"].fix_pose, ctx["kf"].fix_motion = ctx["saved"]
-        write_back(self.map, st2, ctx["meta"], write_landmarks=False)
+        frames = ctx["meta"].frames
+        if self.config.deferred_subframe_write and len(frames) >= 2:
+            if self._latest_solved is None or not self._pending_writes:
+                # frames[-2]: the newest frame whose host record is solved
+                # (older pending writes move the anchor as they land)
+                self._latest_solved = self._snapshot(frames[-2])
+            self._queue_write(st=st2, meta=ctx["meta"], pf=write_back_start(st2))
+        else:
+            write_back(self.map, st2, ctx["meta"], write_landmarks=False)
 
     def _fused_subframe_step(self, target: FrameRec) -> None:
         """Localize + subwindow refine over the subwindow tensors: the
@@ -505,6 +745,12 @@ class SlidingWindowTracker:
         sequence's step at once and finishes each."""
         ctx = self.prepare_fused_subframe(target)
         if self.solve_broker is not None:
+            if self.config.deferred_subframe_write:
+                # until the broker solves, publish the anchor that
+                # finish_fused_subframe sets, not the unsolved target
+                if self._latest_solved is None or not self._pending_writes:
+                    self._latest_solved = self._snapshot(ctx["meta"].frames[-2])
+                self._in_broker = True
             self.solve_broker.submit(self, ctx)
             return
         ctx["t0"] = time.perf_counter()
@@ -534,6 +780,7 @@ class SlidingWindowTracker:
             with_preint=True, imu_cap=96)
         for f, (fp, fm) in zip(wframes, saved):
             f.fix_pose, f.fix_motion = fp, fm
+        state, data = self._inject_solved(state, data, wframes, meta)
         state = self._apply_pred(state, wframes, data)
         pm = np.zeros((self.K_slots + 2,), dtype=bool)
         pm[len(wframes) - 1] = bool(meta.preint_mask[len(wframes) - 1])
@@ -541,14 +788,26 @@ class SlidingWindowTracker:
                              fix_landmark=torch.ones_like(data.fix_landmark))
         return state, data, meta, target, len(wframes) - 1
 
-    def localize_newframe(self) -> None:
+    def localize_newframe(self, defer_write: bool = False) -> None:
         """Solve the new frame alone (the localize window) and write its
-        state back."""
-        state, data, meta, target, _ = self._prepare_localize()
+        state back; with `defer_write` its read starts and
+        _materialize_localize lands it."""
+        state, data, meta, target, slot = self._prepare_localize()
         st, _ = self._solve_timed("localize", state, data, SolveOptions(
             iterations=self._budgeted_iterations("localize")))
-        write_back(self.map, st, meta, write_landmarks=False,
-                   frame_subset={target.id})
+        if defer_write:
+            self._loc_result = (fetch_packed_start(
+                tuple(x[slot] for x in (st.q, st.p, st.v, st.bg, st.ba))), target)
+        else:
+            write_back(self.map, st, meta, write_landmarks=False,
+                       frame_subset={target.id})
+
+    def _materialize_localize(self) -> None:
+        """Land localize_newframe(defer_write=True)'s result in the
+        target's host record."""
+        loc, self._loc_result = self._loc_result, None
+        if loc is not None:
+            self._apply_loc(*loc)
 
     def track_landmark(self) -> None:
         """Triangulate the new keyframe's untriangulated tracks on the
@@ -577,6 +836,7 @@ class SlidingWindowTracker:
         state, data, meta = self._extract(
             frames, self.K_slots, track_filter=self._refine_track_filter(frames),
             all_frames_between=self._kf_between(frames), imu_cap=128)
+        state, data = self._inject_solved(state, data, frames, meta)
         if self.marg is None:
             self.marg = MargPrior.gauge_fix(self.K_slots, self.L_slots, state)
         data = data._replace(marg=self.marg, use_marg=torch.ones(
@@ -590,11 +850,21 @@ class SlidingWindowTracker:
         # landmarks the gates reject do not enter the marginalization prior
         self._last_window = (
             st, data._replace(landmark_mask=data.landmark_mask & gates[0]), meta)
-        ok, _ = write_back(self.map, st, meta, extra=gates)
-        self._apply_landmark_gates(meta, ok)
-        covered = {tid for l, tid in enumerate(meta.track_ids)
-                   if meta.landmark_mask[l]}
-        self._revalidate_landmarks(frames, skip_ids=covered)
+
+        def apply_gates(extra_out):
+            self._apply_landmark_gates(meta, extra_out[0])
+            covered = {tid for l, tid in enumerate(meta.track_ids)
+                       if meta.landmark_mask[l]}
+            self._revalidate_landmarks(frames, skip_ids=covered)
+
+        if self.config.deferred_subframe_write:
+            # the localize stage landed the target's pose: the anchor is
+            # the target
+            self._latest_solved = self._snapshot(frames[-1])
+            self._queue_write(st=st, meta=meta, extra=gates, cb=apply_gates,
+                              pf=write_back_start(st, gates), write_landmarks=True)
+        else:
+            apply_gates(write_back(self.map, st, meta, extra=gates))
 
     def _apply_pred(self, state, frames, data):
         """Patch the staged IMU prediction of the newest frame into its
@@ -759,6 +1029,8 @@ class SlidingWindowTracker:
                 state = st
                 data = data._replace(preint=preint, bg_lin=bg_lin, ba_lin=ba_lin)
             else:
+                # the extraction reads host records: land deferred writes
+                self.materialize_pending()
                 state, data, meta = self._extract(
                     frames, self.K_slots,
                     track_filter=self._refine_track_filter(frames),
@@ -818,6 +1090,7 @@ class SlidingWindowTracker:
                 return first in kf_anchor_ids or first in sub_ids
         state, data, meta = self._extract(frames, self.K_sub, track_filter=tf,
                                           imu_cap=128)
+        state, data = self._inject_solved(state, data, frames, meta)
         refs = meta.ref_idx
         fix_lm = refs == 0
         dev = self.device

@@ -17,6 +17,7 @@ import torch
 
 from ..estimation.window import MargPrior, WindowData, WindowState
 from ..imu import preintegration as pre
+from ..utils.fetch import fetch_packed_start
 from . import nputil
 from .map import FrameRec, PipelineMap, TrackRec
 
@@ -292,17 +293,22 @@ def extract_window(pmap: PipelineMap, frames: List[FrameRec], K_slots: int,
     return state, data, meta
 
 
+def write_back_start(state: WindowState, extra=None):
+    """Start the read of a solve's result for a later
+    write_back(..., prefetched=handle): the state and the `extra`
+    tensors in one packed copy that does not wait."""
+    return fetch_packed_start((tuple(state), extra))
+
+
 def write_back(pmap: PipelineMap, state: WindowState, meta: WindowMeta,
                write_landmarks: bool = True,
-               frame_subset: Optional[set] = None, extra=None):
-    """Push optimized states into the map (one device→host copy of the
-    state, plus `extra` tensors, returned as numpy)."""
-    qs, ps, vs, bgs, bas, invd = (x.cpu().numpy() for x in state)
-    extra_out = None
-    if extra is not None:
-        from ..utils.tree import tree_map
-
-        extra_out = tree_map(lambda x: x.cpu().numpy(), extra)
+               frame_subset: Optional[set] = None, extra=None, prefetched=None):
+    """Push optimized states into the map: the state and the `extra`
+    tensors (returned as numpy) in one packed read, or from
+    `prefetched`, a handle of write_back_start(state, extra)."""
+    if prefetched is None:
+        prefetched = write_back_start(state, extra)
+    (qs, ps, vs, bgs, bas, invd), extra_out = prefetched.get()
     for i, f in enumerate(meta.frames):
         if frame_subset is not None and f.id not in frame_subset:
             continue

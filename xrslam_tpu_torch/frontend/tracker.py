@@ -13,7 +13,12 @@
   8. with an aligned depth image, its value at each final keypoint into
      `FrameRec.kp_depth`; the painter tap (`utils.inspection`).
 
-Device results are read back once per frame with `.cpu()`.
+Every device result a frame needs on the host comes back in one packed
+read (`utils.fetch`). With a `between` callback (`Config.worker_overlap`)
+the tracker runs a two-frame software pipeline: it dispatches the
+frame, runs `between` (the pipeline's backend stage of an earlier
+frame), starts the read and returns with it in flight; the next call,
+or `finish_pending`, completes the frame.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..core import nputil
 from ..core.map import FrameRec, PipelineMap
 from ..ransac import stereo as stereo_mod
 from ..utils import inspection
+from ..utils.fetch import fetch_packed_start
 from ..utils.timing import StageTimes
 from . import image as img_ops
 from . import klt
@@ -125,9 +131,23 @@ class KLTFeatureTracker:
         self.generator.manual_seed(int(config.random))
         self._prev: Optional[FrameRec] = None
         self._Kinv = None
+        # the frame whose read is in flight (two-frame pipeline), and the
+        # newest frame completed
+        self._pending: Optional[dict] = None
+        self.last_finished: Optional[FrameRec] = None
 
-    def track_frame(self, tracker_map: PipelineMap, frame: FrameRec) -> None:
-        """One frame of tracking + detection."""
+    def track_frame(self, tracker_map: PipelineMap, frame: FrameRec,
+                    rider=None, between=None) -> None:
+        """One frame of tracking + detection: dispatch everything, then
+        one packed read. `rider`: in-flight reads of the backend (a list
+        of `utils.fetch.FetchHandle`) that this read completes, since
+        they were started before it on the same stream: they are marked
+        arrived with it. `between`: a callback run after the dispatch
+        and before the read; the frame then stays in flight until the
+        next call (or `finish_pending`). With `rider` None, `between`
+        may return the riders (its own fresh write-backs) and runs
+        before the read starts; with `rider` given, the read starts
+        first and carries only those earlier riders."""
         image = frame._image
         if image is None:
             raise ValueError("KLTFeatureTracker needs frame._image")
@@ -141,6 +161,8 @@ class KLTFeatureTracker:
                 tiles_y=int(self.config.feature_tracker_clahe_height),
                 levels=int(self.levels))
         frame._pts = np.zeros((self.capacity, 2), dtype=np.float64)
+        # the previous frame's keypoints are this frame's KLT input
+        self.finish_pending()
 
         prev = self._prev
         dev_out = {}
@@ -156,16 +178,46 @@ class KLTFeatureTracker:
                     border=20)
                 dev_out["cand"] = cand
                 dev_out["cvalid"] = cvalid
+        riders = []
+
+        def attach(handles):
+            for h in handles or ():
+                if not h.riding:
+                    h.riding = True
+                    riders.append(h)
+
+        if between is not None and rider is None:
+            attach(between())   # its fresh write-backs ride this read
+        else:
+            attach(rider)
+        handle = fetch_packed_start(dev_out)
+        if between is not None and rider is not None:
+            between()           # this read carries only the earlier riders
+        self._pending = dict(frame=frame, prev=prev, ctx=ctx, detect=detect,
+                             handle=handle, map=tracker_map, riders=riders)
+        self._prev = frame
+        if between is None:
+            self.finish_pending()
+
+    def finish_pending(self) -> None:
+        """Complete the frame whose read is in flight: wait for the read,
+        mark its riders arrived, then the host half of tracking and
+        detection. Nothing to do when no frame is pending."""
+        p, self._pending = self._pending, None
+        if p is None:
+            return
         with self.times.stage("tracker_fetch_time"):
-            vals = {k: v.cpu().numpy() for k, v in dev_out.items()}
-        if ctx is not None:
-            self._finish_track(tracker_map, prev, frame, ctx, vals)
-        if detect:
+            vals = p["handle"].get()
+        for h in p["riders"]:
+            h.arrived = True
+        frame, prev, tracker_map = p["frame"], p["prev"], p["map"]
+        if p["ctx"] is not None:
+            self._finish_track(tracker_map, prev, frame, p["ctx"], vals)
+        if p["detect"]:
             self._finish_detect(tracker_map, frame, vals)
         if prev is not None:
             prev._pyr = None  # release_image_buffer
         self._finalize_frame(tracker_map, frame)
-        self._prev = frame
 
     def _finalize_frame(self, tracker_map: PipelineMap, frame: FrameRec) -> None:
         """Post-tracking host work on the frame's final keypoints: depth
@@ -192,6 +244,7 @@ class KLTFeatureTracker:
                 "lengths": lengths, "frame_id": frame.id, "t": frame.t,
             })
         frame._image = None
+        self.last_finished = frame
 
     def _gyro_delta_q(self, prev: FrameRec, frame: FrameRec) -> np.ndarray:
         """Gyro-only Δq over the inter-frame IMU samples at the previous

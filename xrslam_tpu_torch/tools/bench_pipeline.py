@@ -8,16 +8,25 @@ plays it `--passes` times through `tools.run_dataset.run_sequence` (PNG
 decode, the reader, `api.XRSLAM`: CLAHE/GFTT/KLT, initializer, sliding
 window, marginalization) on the card, or on the CPU with
 `--device cpu`. The first pass is a warm-up; the fastest of the others
-is reported. The port always runs the depth-1 schedule.
+is reported. `--schedule` picks the backend's schedule
+(`core/detail.py`): `sync` (the default, the reference's PC default:
+each frame's backend stage within its own push), `overlap`
+(`worker_overlap`, the one-frame lag) or `pipelined` (`worker_overlap`
++ `pipelined_writeback`, the two-frame lag the JAX package's root
+`bench_pipeline.py` runs by default).
 
-    python -m xrslam_tpu_torch.tools.bench_pipeline --width 752 --height 480 --focal 458
+    python -m xrslam_tpu_torch.tools.bench_pipeline --width 752 --height 480 --focal 458 \
+        [--schedule pipelined]
 
 Prints ONE JSON line: frames/s of the fastest timed pass and of every
 pass (warm-up first), frames tracked and ATE of that pass, its per-stage
 means (`StageTimes`, ms), the per-frame latency (host clock from a
 frame's image push to the end of the push that processed it, which
 ends in a host read of its pose: median and p90, ms), and on the card
-its name and power limit as nvidia-smi gives them.
+its name and power limit as nvidia-smi gives them. `main` returns the
+line's values; `bench` returns them with the reported pass (its output
+times `ts`, positions `ps` and final window after `flush`, `window`: t,
+q, p, v of every frame).
 """
 
 from __future__ import annotations
@@ -37,6 +46,11 @@ from ..core.detail import compute_device
 from .make_dataset import render_dataset
 from .run_dataset import evaluate_ate, run_sequence
 
+# the Config flags of each schedule
+SCHEDULES = {"sync": {},
+             "overlap": {"worker_overlap": True},
+             "pipelined": {"worker_overlap": True, "pipelined_writeback": True}}
+
 
 def dataset_dir(base: str, frames: int, landmarks: int, width: int, height: int,
                 focal: float) -> str:
@@ -54,6 +68,12 @@ def card_line() -> str:
 
 
 def main(argv=None) -> dict:
+    return bench(argv)[0]
+
+
+def bench(argv=None):
+    """Run the benchmark and print its line; returns (the line's values,
+    the reported pass)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--landmarks", type=int, default=500)
@@ -72,6 +92,8 @@ def main(argv=None) -> dict:
                     help="focal length in pixels (default 260 * width / 320)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the pipeline runs (default: the card)")
+    ap.add_argument("--schedule", choices=tuple(SCHEDULES), default="sync",
+                    help="the backend's schedule (default: sync)")
     args = ap.parse_args(argv)
     if not 0 <= args.warmup < args.passes:
         ap.error("--passes must exceed --warmup (>= 0): one pass at least is timed")
@@ -85,7 +107,8 @@ def main(argv=None) -> dict:
         render_dataset(ds_dir, n_frames=args.frames, n_landmarks=args.landmarks,
                        width=args.width, height=args.height, focal=focal)
     config = load_config(os.path.join(ds_dir, "slam.yaml"),
-                         os.path.join(ds_dir, "device.yaml"))
+                         os.path.join(ds_dir, "device.yaml")).replace(
+                             **SCHEDULES[args.schedule])
 
     uri = "euroc://" + root
     passes = []
@@ -98,7 +121,9 @@ def main(argv=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
-        passes.append({"seconds": dt, "ts": ts, "ps": ps, "latency": latency,
+        swt = slam.pipeline.swt
+        window = [] if swt is None else [(f.t, f.q, f.p, f.v) for f in swt.map.all_frames()]
+        passes.append({"seconds": dt, "ts": ts, "ps": ps, "latency": latency, "window": window,
                        "stage_ms": {k: v * 1e3 for k, v in sorted(slam.times.means().items())}})
     best = min(passes[args.warmup:], key=lambda r: r["seconds"])
     lat_ms = np.asarray(best["latency"]) * 1e3
@@ -109,6 +134,7 @@ def main(argv=None) -> dict:
                 f"{args.width}x{args.height}, focal {focal:g}: reader, image KLT "
                 "frontend, initializer, sliding window, marginalization)",
         "device": dev.type,
+        "schedule": args.schedule,
         "card": card_line() if dev.type == "cuda" else None,
         "frames": args.frames,
         "pass_frames_per_s": [args.frames / r["seconds"] for r in passes],
@@ -123,7 +149,7 @@ def main(argv=None) -> dict:
         "dataset": ds_dir,
     }
     print(json.dumps(out))
-    return out
+    return out, best
 
 
 if __name__ == "__main__":

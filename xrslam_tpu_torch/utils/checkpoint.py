@@ -34,11 +34,16 @@ What the port adds to the JAX tree, under keys the JAX package ignores:
   window tracker's stats, each frame's keypoint depths, and the frames
   still waiting for their IMU samples together with their inputs.
 
-No staged state needs landing first. The port has no deferred write-back;
-the window tracker's staged per-frame values (the PARSAC prediction
-`_pred_parsac`, the IMU prediction `_pred_frame`, the solved window
-`_last_window`) are each set and consumed inside one frame's
-`track()` or overwritten by the next frame before anything reads them.
+A save first completes the pipeline's deferred work (`VIOPipeline.flush`:
+the tracker's frame in flight, the queued backend stages of
+`worker_overlap`, the pending write-backs), so that the frame states it
+writes are solved; the JAX package lands only the write-backs
+(`xrslam_tpu/utils/checkpoint.py:170`), and its overlapped schedules
+lose the queued frame. The window tracker's other staged per-frame
+values (the PARSAC prediction `_pred_parsac`, the IMU prediction
+`_pred_frame`, the solved window `_last_window`) are each set and
+consumed inside one frame's `track()` or overwritten by the next frame
+before anything reads them.
 A staged PARSAC prediction at save time means a save from inside a
 frame, which raises.
 
@@ -225,6 +230,7 @@ def _set_rng(gen: torch.Generator, node: dict) -> None:
 
 def pipeline_tree(p: VIOPipeline) -> dict:
     """Everything needed to resume (see the module docstring)."""
+    p.flush()
     swt = p.swt
     if swt is not None and swt._pred_parsac is not None:
         raise RuntimeError("a PARSAC prediction is staged: save between frames, "
