@@ -20,7 +20,10 @@
      five-launch chain of entry 1 with its image-wide Scharr calls; the
      longest chain of LK steps one point took and, from a second launch
      at iters=1, the time of one step alone and the latency floor
-     (longest chain x one step);
+     (longest chain x one step); then on the chained frontend's input
+     (the pair's slots permuted, a third of them dead at stale positions
+     outside the image) held to `track_keypoints_plain` at the same
+     limits, the dead slots untouched, two launches bit-equal;
    - K2 reproj_gram, entry 1 (`gram.reproj_gram`): K=12, L=384, seeded
      inputs with a valid anchor one-hot and ~1/4 of the landmarks
      masked; rtol/atol 1e-9 in float64 and 1e-4 in float32 (summation
@@ -107,11 +110,12 @@
 
 9. writes the main path's scene to disk as an EuRoC-layout dataset
    with aligned depth images (`tools.make_dataset.render_dataset`,
-   752x480, 90 frames) and plays it back through
+   752x480, 75 frames) and, in a process of its own beside 8 (as 10
+   runs), plays it back through
    `tools.run_dataset.run_sequence` (the PNG reader, the YAML pair,
    `api.XRSLAM` with DEPTH_CAMERA and the depth-camera keyframe path:
    localize, host triangulation seeded from depth, refine); fails
-   unless >= 45 frames were tracked, ATE <= 0.25 m, the estimated span
+   unless >= 37 frames were tracked, ATE <= 0.25 m, the estimated span
    > half the ground truth's, the initializer's depth rescale ran,
    landmarks were depth-seeded, LANDMARKS and FEATURES came back
    non-empty while tracking, and the kernels launched as in 5; prints
@@ -149,19 +153,39 @@
    line parses, >= 60% of the frames were tracked, ATE <= 0.25 m and
    both kernels launched as in 5; prints the line (frames/s, per-frame
    latency median and p90, stage means).
-12b. the schedules, in processes of their own started before 12 (whose
-   timed pass starts when the pipelined process has warmed up on 20
-   frames, so that the two passes run side by side): (a) the same
-   benchmark pass with `--schedule pipelined` (`worker_overlap` +
-   `pipelined_writeback`, the two-frame lag), held to 12's synchronous
-   pass: frames tracked within 1, the same last output time, the final
-   window after `flush` within 1e-9 (q, p, v), positions on common
-   output times within 2e-2 m, ATE <= 0.25 m and the kernels launched as
-   in 5; prints both passes' frames/s and latency median and p90. (b) the bearing scene of 11
+12b. the schedules, in processes of their own started beside 11: (a)
+   the same benchmark pass with `--schedule pipelined` (`worker_overlap`
+   + `pipelined_writeback`, the two-frame lag), warmed on 20 frames and
+   then held until 12's timed pass starts, so that the passes run side
+   by side, and held to 12's synchronous pass: frames tracked within 1,
+   the same last output time, the final window after `flush` within
+   1e-9 (q, p, v), positions on common output times within 2e-2 m, ATE
+   <= 0.25 m and the kernels launched as in 5; prints both passes'
+   frames/s and latency median and p90. (b) the bearing scene of 11
    (60 frames, PARSAC on) straight and with `worker_overlap`: the final
    windows after `flush` within 1e-9, K2 launched and K1 not; prints
    the device syncs a frame of both drives, counted by torch's sync
    debug mode.
+12c. the chained frontend: the same benchmark pass with `--schedule
+   chained` (`chained_frontend` on the two-frame lag), in a process of
+   its own started and warmed with 12b's, so that its timed pass runs
+   beside 12's and 12b(a)'s; fails unless >= 60% of its frames
+   tracked, ATE <= 0.25 m, the kernels launched as in 5 (K1 once per frame
+   pair dispatched), and the chained route (the tracker's counter) took
+   every frame pair after the first two less the re-seeds it reports;
+   prints its frames/s, latency median and p90, the tracker's split
+   (preprocess, dispatch, fetch) and its route counters beside 12's and
+   12b(a)'s.
+12d. the A/B tools, once each with 5 repetitions: `tools.ab_assemble`
+   (K2's fused entry, its plain version and the Gram form inside
+   `assemble` and a 10-iteration solve, at K=12, L=384 and K=32, L=1024,
+   the systems within rtol/atol 1e-9), `tools.ab_lk_backend` (K1's fused
+   entry, entry 1's five-launch chain and the plain version on the
+   752x480 pair, within the K1 phase's limits) and
+   `tools.ab_klt_precision` (K1 in f32 against the plain version in f32
+   and f64: survivors within 1% of f64's, 1e-3 px from f64); fails if a
+   route of the tool's ROUTES does not run or a route's or the line's
+   `agree` is not true, and prints each tool's JSON line.
 
 Beside these:
 - K2's fused entry on a batch of 4 windows (K_sub=11, L=384, f64) in
@@ -175,7 +199,7 @@ Beside these:
   Python `_poisson_accept` on every call it recorded (both timed); the
   tracker's stage split; in phase 9 every camera PNG decoded by
   `png_load_gray`;
-- the C ABI, after phase 10: the port's shim (`native.build_capi`)
+- the C ABI, in a process of its own beside phase 8: the port's shim (`native.build_capi`)
   loaded with ctypes drives the main scene's first 45 frames at 752x480
   through XRSLAMCreate / XRSLAMPushSensorData / XRSLAMRunOneFrame /
   XRSLAMGetResult on the card; fails unless half of the frames after
@@ -187,7 +211,8 @@ Beside these:
 - the ROS node (`tools.ros_node.RosVioNode`) on the card, the dataset's
   first 20 frames with the distortion flag on: every image drained into
   the engine, each remapped by the native runtime;
-- after phase 12, `tools.multiseq` at 752x480: 2 sequences (seeds 3 and
+- in a process of its own beside phases 6, 7 and 7b, `tools.multiseq`
+  at 752x480: 2 sequences (seeds 3 and
   5) of 45 frames, sequential then batched (`solve_chained_batch`,
   K2 over the batch); fails unless every sequence in both modes tracked
   half of its frames after frame 28 at ATE <= 0.25 m, a K2 call served
@@ -195,7 +220,8 @@ Beside these:
   one by one agree with their rows within 1e-9; prints both modes'
   frames/s, the speedup, K1/K2 launches per sequence-frame and where
   the modes part, if they do;
-- after the batched K2, the landmark-sharded Schur BA
+- in a process of its own beside phases 6, 7 and 7b, the landmark-sharded
+  Schur BA
   (`parallel.sharded`, ranks spawned by `parallel.mesh.run_ranks` with
   a join timeout, sharing the card over gloo): a K=32, L=2048 f64
   window (`io.synthetic.demo_window_problem`, numpy-seeded
@@ -210,8 +236,13 @@ Beside these:
   and the collectives a solve and their bytes; K2's fused entry on every
   rank's shard of that window (L/W = 2048, 1024, 512 columns) held to
   its plain version at rtol/atol 1e-9, timed beside it and bounded;
-  then `tools.run_scaling --devices 1 2 --modes data model --reps 2`
-  with its table, labeled as ranks sharing the card;
+  and `tools.run_scaling --devices 1 2 --modes data model --reps 1` in
+  a process of its own beside phases 6, 7 and 7b, with its table,
+  labeled as ranks sharing the card;
+- the phases beside others are those whose checks do not depend on
+  time (their times are taken under that load); the kernels' phases,
+  the main drive, 12 with 12b(a) and 12c, and the A/B tools run with
+  nothing else beside them;
 - in the K2 entry 1 phase, K2's library yardstick: the cuBLAS Gram
   form (`gram.reproj_gram_matmul`) held to the plain version and timed
   beside entry 1 at K=12, L=384 and K=32, L=2048 (f64), with its
@@ -253,10 +284,10 @@ PNP_FRAMES = 60
 # cut from 120 frames when phases 9-10 took the script past 600 s
 PARSAC_FRAMES = 60
 LOC_FRAMES = 60
-# the dataset drive with depth (phase 9): cut from 120 frames with the
-# sharded phases (PERF.md section 4); held to half of them tracked, as
-# the main drive is
-DATASET_FRAMES = 90
+# the dataset drive with depth (phase 9): cut from 120 frames to 90 with the
+# sharded phases, then to 75 (PERF.md section 4); held to half of them
+# tracked, as the main drive is
+DATASET_FRAMES = 75
 # the dataset CLI's run with --viz: long enough to track (the backend
 # starts near frame 29) so that the trajectory plot has an estimate
 CLI_FRAMES = 40
@@ -354,6 +385,13 @@ RANK_TIMEOUT_S = 300
 # cut from (1, 2, 4) when the sharded phases took the script past the
 # 800 s set for it (PERF.md section 4)
 SCALING_DEVICES = (1, 2)
+# cut from 2 for the script's time; run_scaling runs in a process of its
+# own beside the checkpoint phase (PERF.md section 4)
+SCALING_REPS = 1
+# the A/B tools (after phase 12): repetitions per timing; ab_assemble's
+# sizes, the JAX record AB_ASSEMBLE_r05.json's
+AB_REPS = 5
+AB_ASSEMBLE_SIZES = ((12, 384), (32, 1024))
 
 # The float32 fused kernel may be this many times as far from the
 # float64 result as the float32 plain version is (both in units of
@@ -589,6 +627,7 @@ def klt_track_phase(dev, width: int = 752, height: int = 480,
     if bool((steps[~ok] != 0).any()) or bool((steps < 0).any()) \
             or bool((steps > iters).any()):
         fail("K1's fused entry: LK steps out of [0, iters], or on a dead slot")
+    scattered = scattered_slot_check(pyrs, pts, init, ok)
 
     def fused():
         return klt.track_keypoints_cuda(*args)
@@ -603,6 +642,7 @@ def klt_track_phase(dev, width: int = 752, height: int = 480,
     k1, k2 = cuda_ms(fused, reps=100), cuda_ms(fused, reps=100)
     c2, p2 = cuda_ms(chain), cuda_ms(plain, reps=5)
     res = {"max_abs_err": err, "status_agreement": agree, "live": int(live.sum()),
+           "scattered_slots": scattered,
            "ms": (k1 + k2) / 2, "ms_runs": [k1, k2], "plain_ms": (p1 + p2) / 2,
            "plain_ms_runs": [p1, p2], "chain_ms": (c1 + c2) / 2,
            "chain_ms_runs": [c1, c2], "device_ms": device_ms(fused),
@@ -657,6 +697,41 @@ def klt_track_phase(dev, width: int = 752, height: int = 480,
           f"(at iters=1 {res['device_ms_iters_1']:.4f} ms for a chain of {chain_1}): "
           f"latency floor {res['latency_floor_us']} us", flush=True)
     return res
+
+
+def scattered_slot_check(pyrs, pts, init, ok) -> dict:
+    """K1's fused entry on the chained frontend's input
+    (`io.synthetic.scattered_slots`: the slots permuted, a third of them
+    dead, the dead slots at stale positions outside the image in both pts
+    and init). Fails unless it agrees with `track_keypoints_plain` at the
+    K1 phase's limits, the dead slots keep their init and stay dead, and
+    two launches are bit-equal."""
+    import torch
+
+    from xrslam_tpu_torch.frontend import klt
+    from xrslam_tpu_torch.io.synthetic import scattered_slots
+
+    N, dead = pts.shape[0], pts.shape[0] // 3
+    pts, init, ok = scattered_slots(pyrs[0], pts, init, ok, seed=1)
+    args = (pyrs[0], pyrs[1], pts, init, ok)
+    ref = klt.track_keypoints_plain(*args)
+    out = klt.track_keypoints_cuda(*args)
+    torch.cuda.synchronize()
+    agree = float((out[1] == ref[1]).float().mean())
+    live = out[1] & ref[1]
+    err = float((out[0] - ref[0]).abs()[live].max()) if bool(live.any()) else 0.0
+    check_repeat("K1 fused entry on scattered slots",
+                 lambda: klt.track_keypoints_cuda(*args))
+    print(f"K1 klt_track on scattered slots ({dead} of {N} dead at stale positions "
+          f"outside the image): status agreement {agree:.4f} (limit 0.99), "
+          f"{int(live.sum())} live on both, max |Δpos| {err:.3e} px (limit 1e-3), "
+          f"repeat bit-equal", flush=True)
+    if agree < 0.99 or err > 1e-3 or not bool(live.any()):
+        fail("K1's fused entry disagrees with track_keypoints_plain on scattered slots")
+    if bool(out[1][~ok].any()) or not torch.equal(out[0][~ok], init[~ok]):
+        fail("K1's fused entry moved or revived a dead slot")
+    return {"dead": dead, "status_agreement": agree, "live": int(live.sum()),
+            "max_abs_err": err}
 
 
 GRAM_NAMES = ["P", "b6", "Hll", "Hfl6", "bl"]
@@ -1309,11 +1384,23 @@ def mobile_phase(dev, out_dir: str, n_frames: int = MOBILE_FRAMES, width: int = 
     return res
 
 
+def render_euroc(out_dir: str, n_frames: int = DATASET_FRAMES, width: int = 752,
+                 height: int = 480, focal: float = 458.0) -> dict:
+    """Phase 9's dataset: the bench scene as an EuRoC-layout dataset with
+    aligned depth images; returns `render_dataset`'s paths."""
+    from xrslam_tpu_torch.tools.make_dataset import render_dataset
+
+    return render_dataset(out_dir, n_frames=n_frames, n_landmarks=500, width=width,
+                          height=height, focal=focal, seed=3, with_depth=True)
+
+
 def dataset_phase(dev, out_dir: str, n_frames: int = DATASET_FRAMES, width: int = 752,
                   height: int = 480, focal: float = 458.0,
-                  min_tracked: int = DATASET_FRAMES // 2, cli_frames: int = CLI_FRAMES) -> dict:
+                  min_tracked: int = DATASET_FRAMES // 2, cli_frames: int = CLI_FRAMES,
+                  paths: dict | None = None) -> dict:
     """Phase 9: the bench scene written to disk as an EuRoC-layout
-    dataset with aligned depth images and played back through
+    dataset with aligned depth images (here, or before: `paths`, as
+    `render_euroc` returns them) and played back through
     `tools.run_dataset` (the reader, the YAML pair, `api.XRSLAM` with
     DEPTH_CAMERA and the depth-camera keyframe path); then the CLI on
     its first `cli_frames` frames with `--viz`, which must write one
@@ -1331,11 +1418,10 @@ def dataset_phase(dev, out_dir: str, n_frames: int = DATASET_FRAMES, width: int 
     from xrslam_tpu_torch.io.dataset import load_euroc_groundtruth, load_gray_pillow
     from xrslam_tpu_torch.kernels import build
     from xrslam_tpu_torch.tools import run_dataset
-    from xrslam_tpu_torch.tools.make_dataset import render_dataset
 
     t0 = time.perf_counter()
-    paths = render_dataset(out_dir, n_frames=n_frames, n_landmarks=500, width=width,
-                           height=height, focal=focal, seed=3, with_depth=True)
+    if paths is None:
+        paths = render_euroc(out_dir, n_frames, width, height, focal)
     render_s = time.perf_counter() - t0
     cfg = load_config(paths["slam_yaml"], paths["device_yaml"])
     seen = {"results": []}
@@ -2178,11 +2264,13 @@ def schedule_bearing_worker(overlap: bool, frames: int, dev: str) -> dict:
     return schedule_bearing_run(dev, overlap, frames)
 
 
-def pipelined_bench_worker(dev: str, out_dir: str, warm_dir: str, ready, frames: int) -> dict:
-    """Phase 12b's pipelined benchmark pass in a process of its own: a
-    WARM_FRAMES pass to warm the process (as the main drive warms the
-    one phase 12 runs in), then `ready` is set and the counted pass of
-    `frames` frames runs."""
+def warm_bench_worker(dev: str, out_dir: str, warm_dir: str, ready, gate, frames: int,
+                      schedule: str) -> dict | None:
+    """A benchmark pass of phase 12b (`schedule` "pipelined") or 12c
+    ("chained") in a process of its own: a WARM_FRAMES pass to warm the
+    process (as the main drive warms the one phase 12 runs in), then
+    `ready` is set, and the counted pass of `frames` frames runs once
+    "go" comes through the `gate` queue (None on "stop")."""
     import io
 
     import torch
@@ -2193,19 +2281,22 @@ def pipelined_bench_worker(dev: str, out_dir: str, warm_dir: str, ready, frames:
         bench_pipeline.main(["--frames", str(WARM_FRAMES), "--width", "752", "--height",
                              "480", "--focal", "458", "--passes", "1", "--warmup", "0",
                              "--dir", warm_dir, "--device", torch.device(dev).type,
-                             "--schedule", "pipelined"])
+                             "--schedule", schedule])
     ready.set()
-    return bench_phase(dev, out_dir, frames=frames, schedule="pipelined")
+    if gate.get(timeout=OBJECT_TIMEOUT_S) != "go":
+        return None
+    return bench_phase(dev, out_dir, frames=frames, schedule=schedule)
 
 
 def start_schedules(dev, out_dir: str, frames: int = BENCH_FRAMES,
-                    bearing_frames: int = CKPT_FRAMES):
-    """Phase 12b's drives, each in a process of its own, started beside
-    phase 12: the pipelined benchmark pass (on phase 12's rendered scene,
-    rendered here first) and the two bearing drives. Returns (the pool,
-    the futures: pipelined pass, bearings straight, bearings overlapped);
-    phase 12's timed pass starts once the pipelined process is warm, so
-    that the two passes run side by side under the same load."""
+                    bearing_frames: int = CKPT_FRAMES) -> dict:
+    """Phase 12b's and 12c's drives, each in a process of its own: the
+    pipelined and the chained benchmark passes (on phase 12's rendered
+    scene, rendered here first), which warm up and then wait for
+    `release_schedules`, and the two bearing drives, which run at once.
+    Returns the pool, the manager, the warm-up events, the gate and the
+    futures (pipelined pass, bearings straight, bearings overlapped,
+    chained pass); `stop_schedules` ends them."""
     import concurrent.futures
     import multiprocessing
 
@@ -2216,15 +2307,36 @@ def start_schedules(dev, out_dir: str, frames: int = BENCH_FRAMES,
     render_dataset(ds, n_frames=frames, n_landmarks=500, width=752, height=480, focal=458.0)
     ctx = multiprocessing.get_context("spawn")
     manager = ctx.Manager()
-    ready = manager.Event()
-    pool = concurrent.futures.ProcessPoolExecutor(max_workers=3, mp_context=ctx)
-    futures = [pool.submit(pipelined_bench_worker, str(dev), out_dir, out_dir + "_warm", ready,
-                           frames)]
-    futures += [pool.submit(schedule_bearing_worker, o, bearing_frames, str(dev))
-                for o in (False, True)]
-    if not ready.wait(OBJECT_TIMEOUT_S):
-        fail("schedules: the pipelined benchmark process did not warm up")
-    return pool, manager, futures
+    ready = {s: manager.Event() for s in ("pipelined", "chained")}
+    gate = manager.Queue()
+    pool = concurrent.futures.ProcessPoolExecutor(max_workers=4, mp_context=ctx)
+    futures = {s: pool.submit(warm_bench_worker, str(dev), out_dir, f"{out_dir}_warm_{s}",
+                              ready[s], gate, frames, s) for s in ready}
+    futures = [futures["pipelined"]] + [
+        pool.submit(schedule_bearing_worker, o, bearing_frames, str(dev))
+        for o in (False, True)] + [futures["chained"]]
+    return {"pool": pool, "manager": manager, "ready": ready, "gate": gate,
+            "futures": futures}
+
+
+def release_schedules(started: dict) -> None:
+    """Waits until both image processes of `start_schedules` are warm,
+    then lets their counted passes start, so that they run side by side
+    with phase 12's, started right after this under the same load."""
+    for s, ev in started["ready"].items():
+        if not ev.wait(OBJECT_TIMEOUT_S):
+            fail(f"schedules: the {s} benchmark process did not warm up")
+    for _ in started["ready"]:
+        started["gate"].put("go")
+
+
+def stop_schedules(started: dict) -> None:
+    """Ends `start_schedules`'s processes: image passes not yet released
+    get "stop" (a released one runs to its end)."""
+    for _ in started["ready"]:
+        started["gate"].put("stop")
+    started["pool"].shutdown(wait=True, cancel_futures=True)
+    started["manager"].shutdown()
 
 
 def schedules_phase(sync_bench: dict, pipe: dict, straight: dict, overlap: dict) -> dict:
@@ -2275,6 +2387,75 @@ def schedules_phase(sync_bench: dict, pipe: dict, straight: dict, overlap: dict)
           f"{overlap['syncs_per_frame']:.2f} overlapped; tracked {straight['tracked']} and "
           f"{overlap['tracked']}", flush=True)
     return res
+
+
+def chained_phase(sync_bench: dict, pipe: dict, chained: dict) -> dict:
+    """Phase 12c's checks of the chained benchmark pass (`bench_phase`
+    with schedule "chained": its share tracked, ATE and kernel checks
+    held there): the chained route carried every tracked frame pair after
+    the first two, less the re-seeds its tracker reports, and K1 launched
+    once for each frame pair dispatched by either route. Prints it beside
+    phase 12's and 12b(a)'s passes."""
+    from xrslam_tpu_torch.frontend import klt
+
+    routes = chained["tracker_routes"]
+    pairs = chained["frame_pairs_tracked"]
+    k1 = chained["entry_launches"]["klt_level"][klt.ENTRY_TRACK]
+    if routes["chained_frames"] < pairs - 2 - routes["reseeds"]:
+        fail(f"chained: the chained route took {routes['chained_frames']} of {pairs} frame "
+             f"pairs ({routes['reseeds']} re-seeds)")
+    if not routes["chained_frames"] <= k1 <= routes["chained_frames"] \
+            + routes["standard_frames"] - 1:
+        fail(f"chained: K1 launched {k1} times for routes {routes}")
+    res = {k: v for k, v in chained.items() if k != "run"}
+    for name, r in (("sync", sync_bench), ("pipelined", pipe), ("chained", chained)):
+        st = r["timings_ms"]
+        print(f"chained (12c), {name} pass: {r['frames_per_s']:.3f} frames/s, latency median "
+              f"{r['latency_ms']['median']:.1f} ms, p90 {r['latency_ms']['p90']:.1f} ms, "
+              f"{r['frames_tracked']}/{r['frames']} tracked, ATE {r['ate_rmse_m']:.4f} m; "
+              f"tracker preprocess {st.get('tracker_preprocess_time', 0.0):.2f}, dispatch "
+              f"{st.get('tracker_dispatch_time', 0.0):.2f}, fetch "
+              f"{st.get('tracker_fetch_time', 0.0):.2f} ms; routes {r['tracker_routes']}",
+              flush=True)
+    print(f"chained (12c): K1 launches {k1} for {pairs} frame pairs; launches "
+          f"{chained['launches']}", flush=True)
+    return res
+
+
+def ab_tools_phase(dev) -> dict:
+    """The three A/B tools on the card, once each with AB_REPS
+    repetitions, the launch counts set to 0 before each and read after:
+    `ab_assemble` at AB_ASSEMBLE_SIZES, `ab_lk_backend` and
+    `ab_klt_precision` on the rendered 752x480 pair. Fails unless every
+    route of the tool's ROUTES ran and each route's own `agree` and the
+    line's are true: the assembled systems within rtol/atol 1e-9, the KLT
+    routes within the plain one's status on >= 99% of the slots and 1e-3
+    px, the f32 survivors within 1% of the f64 ones and 1e-3 px; prints
+    each tool's JSON line."""
+    from xrslam_tpu_torch.kernels import build
+    from xrslam_tpu_torch.tools import ab_assemble, ab_klt_precision, ab_lk_backend
+
+    tools = {"ab_assemble": (ab_assemble, lambda: [ab_assemble.run(K, L, reps=AB_REPS,
+                                                                   device=dev)
+                                                   for K, L in AB_ASSEMBLE_SIZES]),
+             "ab_lk_backend": (ab_lk_backend,
+                               lambda: [ab_lk_backend.run(reps=AB_REPS, device=dev)]),
+             "ab_klt_precision": (ab_klt_precision,
+                                  lambda: [ab_klt_precision.run(reps=AB_REPS, device=dev)])}
+    out = {}
+    for name, (tool, fn) in tools.items():
+        build.reset_launch_counts()
+        lines = fn()
+        out[name] = {"lines": lines, "launches": {k.name: k.launches for k in build.KERNELS}}
+        for line in lines:
+            print(f"{name}: {json.dumps(line)}", flush=True)
+            if any(not isinstance(line.get(r), dict) for r in tool.ROUTES):
+                fail(f"{name}: a route did not run: {line}")
+            if line.get("agree") is not True or \
+                    any(line[r].get("agree") is not True for r in tool.ROUTES):
+                fail(f"{name}: the routes disagree: {line}")
+        print(f"{name}: launches {out[name]['launches']}", flush=True)
+    return out
 
 
 # K2's batch axis: the subframe path's window (SlidingWindowTracker.K_sub:
@@ -2718,37 +2899,10 @@ def multiseq_phase(dev, out_dir: str, n_seq: int = MULTISEQ_N,
     return res
 
 
-def perturbed_window(K: int, L: int, seed: int, dev):
-    """`io.synthetic.demo_window_problem(K, L)` in float64 on `dev`, its
-    state perturbed from a numpy seed with tests/helpers.perturb_state's
-    scales (frame 0 kept): rotation 0.01 rad, position and velocity
-    0.02, biases 0.002, inverse depths 2%."""
-    import torch
-
-    from xrslam_tpu_torch.geometry import lie
-    from xrslam_tpu_torch.io.synthetic import demo_window_problem
-    from xrslam_tpu_torch.utils.tree import tree_map
-
-    state, data = demo_window_problem(K, L)
-    rng = np.random.default_rng(seed)
-    keep = np.ones((K, 1))
-    keep[0] = 0.0
-
-    def d(scale):
-        return torch.as_tensor(scale * rng.normal(size=(K, 3)) * keep)
-
-    q = lie.quat_normalize(lie.quat_mul(state.q, lie.expmap(d(0.01))))
-    p, v, bg, ba = (state.p + d(0.02), state.v + d(0.02), state.bg + d(0.002),
-                    state.ba + d(0.002))
-    invd = state.inv_depth * torch.as_tensor(1.0 + 0.02 * rng.normal(size=L))
-    state = state._replace(q=q, p=p, v=v, bg=bg, ba=ba, inv_depth=invd)
-    return tree_map(lambda x: x.to(dev), state), tree_map(lambda x: x.to(dev), data)
-
-
 def sharded_rank(rank: int, n: int, jobs, device: str) -> list:
     """One rank of the sharded phases (run by `parallel.mesh.run_ranks`):
     per job (mode, mesh shape, K, L, seeds, iterations, timed solves),
-    the windows `perturbed_window(K, L, seed)` on this rank's device,
+    the windows `perturbed_demo_window(K, L, seed)` on this rank's device,
     sharded ("model": one window) or batched and sharded ("data"),
     solved once with the launch counts, K2's calls and the collectives
     recorded, then `timed` more times. Returns per job the gathered
@@ -2757,6 +2911,7 @@ def sharded_rank(rank: int, n: int, jobs, device: str) -> list:
     import torch.distributed as dist
 
     from xrslam_tpu_torch.estimation import gram, solver
+    from xrslam_tpu_torch.io.synthetic import perturbed_demo_window
     from xrslam_tpu_torch.kernels import build
     from xrslam_tpu_torch.parallel import mesh as pmesh
     from xrslam_tpu_torch.parallel import sharded
@@ -2771,7 +2926,7 @@ def sharded_rank(rank: int, n: int, jobs, device: str) -> list:
     for mode, shape, K, L, seeds, iters, timed in jobs:
         mesh = pmesh.make_mesh(shape=shape, device_type=dev.type)
         opts = solver.SolveOptions(iterations=iters)
-        wins = [perturbed_window(K, L, sd, dev) for sd in seeds]
+        wins = [perturbed_demo_window(K, L, sd, dev) for sd in seeds]
         if mode == "model":
             st, dt = sharded.shard_window(mesh, *wins[0])
 
@@ -2856,6 +3011,7 @@ def sharded_model_phase(dev, K: int = SHARD_K, L: int = SHARD_L, widths=SHARD_WI
     import torch
 
     from xrslam_tpu_torch.estimation import gram, solver
+    from xrslam_tpu_torch.io.synthetic import perturbed_demo_window
     from xrslam_tpu_torch.parallel import mesh as pmesh
     from xrslam_tpu_torch.parallel import sharded
 
@@ -2866,7 +3022,7 @@ def sharded_model_phase(dev, K: int = SHARD_K, L: int = SHARD_L, widths=SHARD_WI
             torch.cuda.synchronize(dev)
 
     opts = solver.SolveOptions(iterations=iters)
-    state, data = perturbed_window(K, L, SHARD_SEED, dev)
+    state, data = perturbed_demo_window(K, L, SHARD_SEED, dev)
     ref, info = solver.solve_window_core(state, data, opts)
     sync()
     if not (float(info["cost"]) < float(info["cost0"])
@@ -2882,7 +3038,7 @@ def sharded_model_phase(dev, K: int = SHARD_K, L: int = SHARD_L, widths=SHARD_WI
 
     dK, dL, dseeds, diters = dxm
     dstates, ddatas = (solver._stack(x) for x in
-                       zip(*[perturbed_window(dK, dL, sd, dev) for sd in dseeds]))
+                       zip(*[perturbed_demo_window(dK, dL, sd, dev) for sd in dseeds]))
     dref, dinfo = solver.solve_window_batch(dstates, ddatas,
                                             solver.SolveOptions(iterations=diters))
     sync()
@@ -3070,22 +3226,44 @@ def nullspace_phase(dev, drive) -> dict:
     return res
 
 
-def scaling_phase(dev, devices=SCALING_DEVICES, extra=()) -> dict:
-    """`tools.run_scaling --devices ... --modes data model --reps 2` (and
-    `extra` arguments) on `dev`'s type; its table printed here, labeled
-    with where the ranks ran."""
-    import io
-
+def start_scaling(dev, devices=SCALING_DEVICES, extra=()) -> dict:
+    """Start `tools.run_scaling --devices ... --modes data model --reps
+    SCALING_REPS` (and `extra` arguments) on `dev`'s type in a process of
+    its own, writing its results to a JSON file; `finish_scaling` waits
+    for it. Its groups of ranks start and solve while another phase
+    runs."""
     import torch
 
-    from xrslam_tpu_torch.tools import run_scaling
+    fd, out = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    argv = ["--devices", *map(str, devices), "--modes", "data", "model", "--reps",
+            str(SCALING_REPS), "--device", torch.device(dev).type, *extra]
+    proc = subprocess.Popen([sys.executable, "-m", "xrslam_tpu_torch.tools.run_scaling",
+                             *argv, "--json", out], stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return {"proc": proc, "out": out, "argv": argv, "t0": time.perf_counter(), "dev": dev}
 
-    argv = ["--devices", *map(str, devices), "--modes", "data", "model", "--reps", "2",
-            "--device", dev.type, *extra]
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        res = run_scaling.main(argv)
-    wall = time.perf_counter() - t0
+
+def finish_scaling(started: dict, timeout_s: float = RANK_TIMEOUT_S) -> dict:
+    """Wait for `start_scaling`'s process (killed past `timeout_s`), then
+    print its table, labeled with where the ranks ran; fails unless it
+    exited 0 and every cost is finite."""
+    import torch
+
+    proc, dev = started["proc"], started["dev"]
+    try:
+        _, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"run_scaling did not end within {timeout_s} s")
+    wall = time.perf_counter() - started["t0"]
+    if proc.returncode != 0:
+        fail(f"run_scaling exited {proc.returncode}: {err[-2000:]}")
+    with open(started["out"]) as f:
+        res = json.load(f)
+    os.unlink(started["out"])
     where = (f"sharing one {torch.cuda.get_device_name(dev)}" if dev.type == "cuda"
              else "on the CPU")
     for mode, rows in res.items():
@@ -3096,9 +3274,40 @@ def scaling_phase(dev, devices=SCALING_DEVICES, extra=()) -> dict:
                   f"{r['windows_per_s']:.1f} windows/s, {r['solve_ms']:.2f} ms a solve, "
                   f"speedup {r['speedup']:.2f}x, efficiency {r['efficiency']:.0%}, "
                   f"{r['collectives_per_solve']:.0f} collectives a solve", flush=True)
-    print(f"run_scaling {' '.join(argv)}: {wall:.1f} s (ranks {where}: no multi-card "
-          "scaling)", flush=True)
+    print(f"run_scaling {' '.join(started['argv'])}: {wall:.1f} s from its start, in a "
+          f"process of its own beside other phases (ranks {where}: no multi-card "
+          f"scaling)", flush=True)
     return {"rows": res, "seconds": wall}
+
+
+def beside_worker(name: str, args: tuple) -> tuple:
+    """`name`(*args), a function of this script, in a process of its own
+    with one intra-op thread; returns (its result, its seconds)."""
+    import torch
+
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    out = globals()[name](*args)
+    return out, time.perf_counter() - t
+
+
+@contextlib.contextmanager
+def beside(*jobs):
+    """Starts each job, (a function of this script, *its arguments), in a
+    spawned process of its own while the block runs: for phases whose
+    checks do not depend on time, beside another phase (PERF.md section
+    4). Yields the futures of (result, seconds); a job's `fail` ends this
+    process too when its future is read, and leaving the block waits for
+    every job."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(jobs), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        yield [pool.submit(beside_worker, fn.__name__, tuple(args)) for fn, *args in jobs]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 def main(argv=None) -> None:
@@ -3140,13 +3349,15 @@ def main(argv=None) -> None:
         phase_s[name] = time.perf_counter() - t
         return out
 
+    def beside_result(name, future):
+        out, phase_s[name] = future.result(timeout=OBJECT_TIMEOUT_S)
+        return out
+
     k1_level = phase("klt_level", klt_phase, dev)
     k1 = phase("klt_track", klt_track_phase, dev)
     k2_gram = phase("reproj_gram", gram_phase, dev)
     k2 = phase("reproj_factor_gram", factor_gram_phase, dev)
     k2_batch = phase("reproj_factor_gram_batch", factor_gram_batch_phase, dev)
-    shard = phase("sharded", sharded_model_phase, dev)
-    scaling = phase("run_scaling", scaling_phase, dev)
     repeat = phase("parsac_repeat", parsac_repeat_phase, dev)
 
     from xrslam_tpu_torch.tools.make_dataset import render_sequence
@@ -3160,32 +3371,61 @@ def main(argv=None) -> None:
     nat = phase("native", native_phase, drive)
     valid = phase("validator", validator_phase, main_slam.pipeline.swt)
     del main_slam
-    parsac_drive = phase("parsac_drive", parsac_drive_phase, dev, seq)
-    pnp_drive = phase("visual_pnp", visual_pnp_phase, dev, seq)
+    # the phases whose checks do not depend on time run in processes of
+    # their own beside others (PERF.md section 4); the kernels' phases,
+    # the main drive, 12 with 12b(a) and 12c, and the A/B tools run with
+    # nothing else beside them
     with tempfile.TemporaryDirectory() as tmp:
-        mobile = phase("mobile_profile", mobile_phase, dev, os.path.join(tmp, "mobile"))
-    obj = phase("dynamic_object", object_phase, dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        dataset = phase("dataset", dataset_phase, dev, os.path.join(tmp, "euroc"))
-        loc = phase("localizer", localizer_phase, dev, dataset)
-        capi = phase("capi", capi_phase, dev, seq, dataset, tmp)
-        ros = phase("ros_node", ros_phase, dev, dataset)
-        ckpt = phase("checkpoint", checkpoint_phase, dev, seq, tmp)
-        # phase 12b's drives start in processes of their own, and phase
-        # 12's timed pass beside them once the pipelined process is warm
-        t = time.perf_counter()
-        pool, manager, futures = start_schedules(dev, os.path.join(tmp, "bench"))
-        phase_s["schedules_start"] = time.perf_counter() - t
+        scaling_run = start_scaling(dev)
         try:
+            with beside((sharded_model_phase, dev),
+                        (multiseq_phase, dev, os.path.join(tmp, "multiseq"))) \
+                    as (f_shard, f_mseq):
+                parsac_drive = phase("parsac_drive", parsac_drive_phase, dev, seq)
+                pnp_drive = phase("visual_pnp", visual_pnp_phase, dev, seq)
+                mobile = phase("mobile_profile", mobile_phase, dev,
+                               os.path.join(tmp, "mobile"))
+                shard = beside_result("sharded (beside 6, 7, 7b)", f_shard)
+                mseq = beside_result("multiseq (beside 6, 7, 7b)", f_mseq)
+            scaling = phase("run_scaling_wait", finish_scaling, scaling_run)
+        finally:
+            if scaling_run["proc"].poll() is None:
+                scaling_run["proc"].kill()
+                scaling_run["proc"].communicate()
+        euroc = os.path.join(tmp, "euroc")
+        paths = phase("dataset_render", render_euroc, euroc)
+        os.makedirs(os.path.join(tmp, "capi"))
+        on_disk = {"paths": paths, "frames": DATASET_FRAMES}
+        with beside((dataset_phase, dev, euroc, DATASET_FRAMES, 752, 480, 458.0,
+                     DATASET_FRAMES // 2, CLI_FRAMES, paths),
+                    (localizer_phase, dev, on_disk),
+                    (capi_phase, dev, seq, on_disk, os.path.join(tmp, "capi"))) \
+                as (f_dataset, f_loc, f_capi):
+            obj = phase("dynamic_object", object_phase, dev)
+            ros = phase("ros_node", ros_phase, dev, on_disk)
+            dataset = beside_result("dataset (beside 8)", f_dataset)
+            loc = beside_result("localizer (beside 8)", f_loc)
+            capi = beside_result("capi (beside 8)", f_capi)
+        # 12b's and 12c's processes run up to their warm-up beside the
+        # checkpoint phase; 12's timed pass starts with theirs
+        sched_run = None
+        try:
+            t = time.perf_counter()
+            sched_run = start_schedules(dev, os.path.join(tmp, "bench"))
+            phase_s["schedules_start"] = time.perf_counter() - t
+            ckpt = phase("checkpoint", checkpoint_phase, dev, seq, tmp)
+            phase("schedules_warm_wait", release_schedules, sched_run)
             bench = phase("benchmark", bench_phase, dev, os.path.join(tmp, "bench"))
             t = time.perf_counter()
-            sched = schedules_phase(bench, *(f.result(timeout=OBJECT_TIMEOUT_S)
-                                             for f in futures))
+            pipe, straight, overlap, chained_pass = (f.result(timeout=OBJECT_TIMEOUT_S)
+                                                     for f in sched_run["futures"])
             phase_s["schedules_wait"] = time.perf_counter() - t
+            sched = schedules_phase(bench, pipe, straight, overlap)
+            chained = chained_phase(bench, pipe, chained_pass)
         finally:
-            pool.shutdown(wait=True, cancel_futures=True)
-            manager.shutdown()
-        mseq = phase("multiseq", multiseq_phase, dev, os.path.join(tmp, "multiseq"))
+            if sched_run is not None:
+                stop_schedules(sched_run)
+        ab = phase("ab_tools", ab_tools_phase, dev)
 
     # one record per kernel, from its main-path entry (K1's and K2's
     # fused entries), with entry 1's numbers beside it
@@ -3216,6 +3456,10 @@ def main(argv=None) -> None:
                                 sched["bearings_straight"]["launches"][k.name],
                             "schedules_bearings_overlap":
                                 sched["bearings_overlap"]["launches"][k.name],
+                            "chained_benchmark": chained["launches"][k.name],
+                            "ab_assemble": ab["ab_assemble"]["launches"][k.name],
+                            "ab_lk_backend": ab["ab_lk_backend"]["launches"][k.name],
+                            "ab_klt_precision": ab["ab_klt_precision"]["launches"][k.name],
                             "capi": capi["launches"][k.name],
                             "ros_node": ros["launches"][k.name],
                             "multiseq_sequential": mseq["sequential"]["launches"][k.name],
@@ -3258,7 +3502,7 @@ def main(argv=None) -> None:
                        "dataset_drive": dataset, "localizer_drive": loc,
                        "validator": valid, "checkpoint": ckpt,
                        "benchmark": {k: v for k, v in bench.items() if k != "run"},
-                       "schedules": sched,
+                       "schedules": sched, "chained": chained, "ab_tools": ab,
                        "sharded": shard, "run_scaling": scaling,
                        "nullspace_basis": bases, "phase_seconds": phase_s,
                        "seconds": time.perf_counter() - t_start,

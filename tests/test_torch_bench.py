@@ -24,7 +24,7 @@ from xrslam_tpu_torch.tools.make_dataset import render_dataset
 
 BENCH_KEYS = {"metric", "frames_per_s", "unit", "device", "card", "frames",
               "pass_frames_per_s", "warmup_passes", "frames_tracked", "ate_rmse_m",
-              "latency_ms", "timings_ms", "dataset", "schedule"}
+              "latency_ms", "timings_ms", "dataset", "schedule", "tracker_routes"}
 
 
 @pytest.fixture(autouse=True)
@@ -105,13 +105,23 @@ def test_bench_pipeline_one_timed_pass(tmp_path, capsys):
 
 
 def test_bench_pipeline_schedule(tmp_path, capsys):
-    """--schedule pipelined runs the two-frame lag; `bench` returns the
-    reported pass with its final window after flush."""
+    """--schedule pipelined runs the two-frame lag, --schedule chained the
+    chained frontend on it; `bench` returns the reported pass with its
+    final window after flush; the line counts the tracker's routes."""
     out = _bench(tmp_path, capsys, "--warmup", "0", "--schedule", "pipelined", passes="1")
     assert out["schedule"] == "pipelined" and out["frames_per_s"] > 0
     line, best = bench_pipeline.bench(["--frames", "8", "--passes", "1", "--warmup", "0",
                                        "--device", "cpu", "--dir", str(tmp_path)])
     assert line["schedule"] == "sync" and best["window"] == []  # not yet tracking
     assert len(best["ts"]) == line["frames_tracked"] == 0
+    # 7 of the 8 frames processed: the last waits for IMU samples after it
+    assert line["tracker_routes"] == {"chained_frames": 0, "standard_frames": 7,
+                                      "reseeds": 0}
+    # --schedule chained: the pipelined schedule with the chained frontend,
+    # which carries every frame pair
+    out = _bench(tmp_path, capsys, "--warmup", "0", "--schedule", "chained", passes="1")
+    assert out["schedule"] == "chained" and out["frames_per_s"] > 0
+    assert out["tracker_routes"] == {"chained_frames": 6, "standard_frames": 1,
+                                     "reseeds": 1}
     with pytest.raises(SystemExit):
-        bench_pipeline.main(["--schedule", "chained", "--device", "cpu"])
+        bench_pipeline.main(["--schedule", "overlapped", "--device", "cpu"])

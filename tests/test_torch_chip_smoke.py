@@ -36,7 +36,9 @@ The validator phase runs on the window of the committed JAX checkpoint
 checkpoint phase's runs (the bearing-fed bench scene with PARSAC, 34
 frames cut at 30; the 320x240 image run, 42 frames cut at 34) and the
 benchmark phase at 320x240 on 44 frames (one pass), each with the counting plain
-wrappers.
+wrappers; phase 12c (the chained benchmark pass beside the synchronous
+and pipelined ones) at 752x480 on 44 frames. The A/B tools' phase fails
+on the CPU, where their kernel routes do not run.
 """
 
 import os
@@ -51,6 +53,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from xrslam_tpu_torch.estimation import gram  # noqa: E402
 from xrslam_tpu_torch.frontend import klt  # noqa: E402
+from xrslam_tpu_torch.io.synthetic import perturbed_demo_window  # noqa: E402
 from xrslam_tpu_torch.kernels import build  # noqa: E402
 
 
@@ -112,6 +115,11 @@ def test_klt_track_phase_rehearsal(monkeypatch):
     t_ops = res["flops"] / chip_smoke.PEAK_FLOPS[4] * 1e3
     assert res["bound_ms"] == max(t_bytes, t_ops)
     assert res["bound_by"] == ("bytes" if t_bytes >= t_ops else "operations")
+    # the chained frontend's input: a third of the slots dead at stale
+    # positions outside the image
+    sc = res["scattered_slots"]
+    assert sc["dead"] == n // 3 and sc["status_agreement"] == 1.0
+    assert sc["max_abs_err"] == 0.0 and sc["live"] > 30
 
 
 def test_parsac_repeat_phase_rehearsal(monkeypatch):
@@ -262,6 +270,63 @@ def test_schedules_phase_rehearsal(monkeypatch, tmp_path):
     assert res["bearings_overlap"]["launches"]["reproj_gram"] > 0
 
 
+@pytest.mark.slow
+def test_chained_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 12c's pass and checks in this process, on the CPU at
+    752x480 on 44 frames beside the sync and pipelined passes of 12 and
+    12b (on the card each runs in a process of its own): the chained
+    route carries the frame pairs, K1 launched once for each."""
+    counting_plain_kernels(monkeypatch)
+    dev = torch.device("cpu")
+    size = dict(frames=44, width=752, height=480, focal=458.0, min_share=0.2)
+    sync, pipe, chained = (chip_smoke.bench_phase(dev, str(tmp_path), schedule=s, **size)
+                           for s in ("sync", "pipelined", "chained"))
+    res = chip_smoke.chained_phase(sync, pipe, chained)
+    routes = res["tracker_routes"]
+    assert routes == {"chained_frames": 42, "standard_frames": 1, "reseeds": 1}
+    assert res["frame_pairs_tracked"] == 42 == res["launches"]["klt_level"]
+    assert res["launches"]["reproj_gram"] > 0
+
+
+def test_ab_tools_phase_fails_without_kernel_routes(monkeypatch):
+    """On the CPU the tools report their kernel routes as not run, which
+    fails the phase (on the card every route must run)."""
+    monkeypatch.setattr(chip_smoke, "AB_ASSEMBLE_SIZES", ((4, 32),))
+    monkeypatch.setattr(chip_smoke, "AB_REPS", 1)
+    with pytest.raises(SystemExit):
+        chip_smoke.ab_tools_phase(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("fault", [None, "no_agree", "route_disagrees", "route_missing"])
+def test_ab_tools_phase_checks(monkeypatch, fault):
+    """The phase passes a tool's line only if every route of the tool's
+    ROUTES ran, each route says it agrees and the line says so too: a
+    line without its `agree` key fails."""
+    from xrslam_tpu_torch.tools import ab_assemble, ab_klt_precision, ab_lk_backend
+
+    def fake(tool):
+        def run(*a, **kw):
+            line = {"device": "cuda", "reference": "plain", "agree": True}
+            line.update({r: {"ms": 1.0, "agree": True} for r in tool.ROUTES})
+            if tool is ab_lk_backend and fault == "no_agree":
+                del line["agree"]
+            if tool is ab_klt_precision and fault == "route_disagrees":
+                line["kernel_f32"]["agree"] = False
+            if tool is ab_assemble and fault == "route_missing":
+                line["kernel"] = "not run: cpu"
+            return line
+        return run
+
+    for tool in (ab_assemble, ab_lk_backend, ab_klt_precision):
+        monkeypatch.setattr(tool, "run", fake(tool))
+    if fault is None:
+        out = chip_smoke.ab_tools_phase(torch.device("cpu"))
+        assert len(out["ab_assemble"]["lines"]) == len(chip_smoke.AB_ASSEMBLE_SIZES)
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.ab_tools_phase(torch.device("cpu"))
+
+
 def test_compare_windows():
     """Phase 12b's window check: equal windows pass with their largest
     difference; other frames, or a difference beyond 1e-9, fail the
@@ -390,8 +455,7 @@ def test_k2_shard_phase_rehearsal(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=20, warmup=3: (fn(), 2.0)[1])
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, calls=20, reps=10: (fn(), 0.5)[1])
-    state, data = chip_smoke.perturbed_window(4, 32, chip_smoke.SHARD_SEED,
-                                              torch.device("cpu"))
+    state, data = perturbed_demo_window(4, 32, chip_smoke.SHARD_SEED, torch.device("cpu"))
     res = chip_smoke.k2_shard_phase(state, data, (2, 4))
     assert sorted(res) == [8, 16, 32]
     for n, one in res.items():
@@ -413,11 +477,26 @@ def test_nullspace_phase_rehearsal(monkeypatch):
 
 
 def test_scaling_phase_rehearsal(capsys):
-    res = chip_smoke.scaling_phase(torch.device("cpu"), devices=(1, 2),
-                                   extra=("--frames", "4", "--landmarks", "32",
-                                          "--iters", "2", "--batch", "2"))
+    """`run_scaling` at a toy size in a process of its own, ranks on the
+    CPU, started and then awaited as `chip_smoke.main` does."""
+    started = chip_smoke.start_scaling(torch.device("cpu"), devices=(1, 2),
+                                       extra=("--frames", "4", "--landmarks", "32",
+                                              "--iters", "2", "--batch", "2"))
+    res = chip_smoke.finish_scaling(started)
     assert [r["devices"] for r in res["rows"]["model"]] == [1, 2]
     assert "run_scaling [data] 2 ranks on the CPU (gloo)" in capsys.readouterr().out
+
+
+def test_beside_runs_jobs_in_processes_of_their_own():
+    """`beside`, as `chip_smoke.main` runs phases beside others: each job
+    in a spawned process, its result and seconds handed back; a job's
+    `fail` ends the reader of its future too."""
+    with chip_smoke.beside((chip_smoke.budgeted_iterations, 0.1, 0.03, 10),
+                           (chip_smoke.fail, "a job failed")) as (ok, bad):
+        out, seconds = ok.result(timeout=120)
+        with pytest.raises(SystemExit):
+            bad.result(timeout=120)
+    assert out == chip_smoke.budgeted_iterations(0.1, 0.03, 10) == 3 and seconds >= 0
 
 
 def test_gram_form_yardstick_rehearsal(monkeypatch):

@@ -7,6 +7,10 @@ a machine with a CUDA device and no JAX:
 (`tests/conftest.py` imports jax, hence `--noconftest` there). Every
 test skips without a CUDA device.
 
+K1's fused entry also runs on the device-chained frontend's input
+(scattered live slots, dead slots at stale positions outside the
+image), and a chained dispatch syncs no more than a standard one.
+
 K2's fused entry also runs on one rank's landmark shard of the sharded
 solve (K=32, L/W columns), and the cuBLAS Gram form
 (`gram.reproj_gram_matmul`) is held to entry 1's plain version.
@@ -38,7 +42,7 @@ from xrslam_tpu_torch.frontend import image as img_ops
 from xrslam_tpu_torch.frontend import klt
 from xrslam_tpu_torch.frontend.tracker import _preprocess_image
 from xrslam_tpu_torch.kernels import build
-from xrslam_tpu_torch.io.synthetic import reproj_window
+from xrslam_tpu_torch.io.synthetic import reproj_window, scattered_slots
 from xrslam_tpu_torch.tools.make_dataset import render_sequence
 
 pytestmark = pytest.mark.gpu
@@ -239,6 +243,59 @@ def test_klt_track_seeds_past_edges(dev):
     init[4 * q:6 * q] = pts[4 * q:6 * q]
     out = _check_track((pyr0, pyr1, pts, init, ok), min_live=50)
     assert not bool(out[1][4 * q:6 * q].any()), "the 20 px border gate"
+
+
+@pytest.mark.parametrize("size", [(320, 240, 260.0), (752, 480, 458.0)],
+                         ids=["320x240", "752x480"])
+def test_klt_track_on_scattered_slots(dev, size):
+    """K1's fused entry on the chained frontend's input (live slots
+    scattered, dead slots at stale positions outside the image) against
+    the plain version, dead slots untouched and taking no LK step, two
+    launches bit-equal (`_check_track`)."""
+    pyr0, pyr1, pts, init, ok = _track_inputs(dev, *size)
+    pts, init, ok = scattered_slots(pyr0, pts, init, ok)
+    out = _check_track((pyr0, pyr1, pts, init, ok), min_live=30)
+    assert not bool(out[1][~ok].any())
+
+
+def _dispatch_syncs(dev, monkeypatch, method: str, **flags) -> list:
+    """Device syncs (torch's sync debug mode) in each call of the
+    tracker's `method` over a 4-frame rendered image drive on the card."""
+    import warnings
+
+    from xrslam_tpu_torch import api
+    from xrslam_tpu_torch.frontend.tracker import KLTFeatureTracker
+    from xrslam_tpu_torch.tools.make_dataset import run_sequence
+
+    seq = render_sequence(n_frames=4)
+    syncs = []
+    orig = getattr(KLTFeatureTracker, method)
+
+    def counted(self, *args, **kwargs):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return orig(self, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.append(sum("synchroniz" in str(w.message) for w in seen))
+
+    monkeypatch.setattr(KLTFeatureTracker, method, counted)
+    run_sequence(api, api.XRSLAM(config=seq["config"].replace(
+        worker_overlap=True, pipelined_writeback=True, **flags), device=dev), seq)
+    return syncs
+
+
+def test_chained_dispatch_adds_no_sync(dev, monkeypatch):
+    """A chained dispatch (its slot update and flow rotation in one
+    copy from pinned memory) syncs no more than the standard dispatch of
+    the same frame pair (frames 1 -> 2; the pairs' first dispatches
+    also cache K^-1)."""
+    chained = _dispatch_syncs(dev, monkeypatch, "_dispatch_chained", chained_frontend=True)
+    standard = _dispatch_syncs(dev, monkeypatch, "_dispatch_track")
+    assert len(chained) >= 2 and len(standard) >= 2, (chained, standard)
+    assert chained[1] <= standard[1], (chained, standard)
 
 
 def test_klt_track_graph_capture(dev):

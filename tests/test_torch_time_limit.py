@@ -28,8 +28,11 @@ float64; and the schedule flags: `chained_frontend` and a depth image under
 - the mobile profile's window (5 keyframes) below the initializer's 8:
   the port's window slots hold the handed-over keyframes and the first
   keyframe step trims them to 5;
-- `worker_overlap`, `pipelined_writeback` and `chained_frontend`: the
-  port's `VIOPipeline` raises `ValueError` for each set True.
+- the schedule flags: `worker_overlap` + `pipelined_writeback` drive
+  three frames; `chained_frontend` on top of them drives three rendered
+  image frames, two of them through the chained route, and without a
+  prerequisite (or with PARSAC) `VIOPipeline` raises `ValueError`
+  naming it; a depth image under the two-frame schedule is refused.
 """
 
 import types
@@ -258,15 +261,39 @@ def test_window_below_initializer_keyframes():
 
 @pytest.mark.parametrize("case", ["chained_frontend", "overlap_pipelined", "depth_pipelined"])
 def test_schedule_flags(case):
-    """chained_frontend is refused; worker_overlap and
-    pipelined_writeback construct and drive three frames; a depth image
-    under the two-frame schedule is refused."""
+    """chained_frontend drives three image frames on top of
+    worker_overlap + pipelined_writeback and is refused without them or
+    with PARSAC; worker_overlap and pipelined_writeback construct and
+    drive three frames; a depth image under the two-frame schedule is
+    refused."""
     cpu = dict(device="cpu")
     if case == "chained_frontend":
-        assert VIOPipeline.UNPORTED_SCHEDULES == ("chained_frontend",)
-        with pytest.raises(ValueError, match="chained_frontend.*ROADMAP.md"):
-            VIOPipeline(Config(chained_frontend=True), SyntheticTracker(**cpu), **cpu)
-        VIOPipeline(Config(chained_frontend=False), SyntheticTracker(**cpu), **cpu)
+        from xrslam_tpu_torch import api
+        from xrslam_tpu_torch.tools.make_dataset import render_sequence, run_sequence
+
+        two_frame = dict(worker_overlap=True, pipelined_writeback=True)
+        for kw, missing in ((dict(pipelined_writeback=True), "worker_overlap=True"),
+                            (dict(worker_overlap=True), "pipelined_writeback=True"),
+                            ({}, "worker_overlap=True, pipelined_writeback=True"),
+                            (dict(two_frame, deferred_subframe_write=False),
+                             "deferred_subframe_write=True"),
+                            (dict(two_frame, parsac_flag=True), "parsac_flag=False")):
+            with pytest.raises(ValueError, match=f"chained_frontend.*set {missing}$"):
+                VIOPipeline(Config(chained_frontend=True, **kw), SyntheticTracker(**cpu),
+                            **cpu)
+        seq = render_sequence(n_frames=3)
+        slam = api.XRSLAM(config=seq["config"].replace(chained_frontend=True, **two_frame),
+                          **cpu)
+        run_sequence(api, slam, seq)
+        pipe = slam.pipeline
+        assert pipe.frames_processed == 3 and pipe.tracker._pending is None
+        assert pipe.tracker.stats == {"chained_frames": 2, "standard_frames": 1,
+                                      "reseeds": 1}
+        assert len(pipe.tracker_map.frames) == 3
+        assert (pipe.tracker_map.frames[-1].track_ids >= 0).sum() > 50
+        with pytest.raises(ValueError, match="depth input is refused with pipelined_writeback"):
+            pipe.track_camera_image(1.0, np.zeros((8, 8), np.float32),
+                                    depth=np.ones((8, 8), np.float32))
         return
     cfg = make_config().replace(worker_overlap=True, pipelined_writeback=True)
     pipe = VIOPipeline(cfg, SyntheticTracker(**cpu), **cpu)

@@ -34,9 +34,15 @@ where the backend lags the tracker by one frame):
     tracker's read, which starts before the backend stage of the queue's
     head runs; up to two solves stay in flight
     (`sliding_window.writeback_depth`).
+  - `chained_frontend` on top of the two-frame lag (the tracker's
+    device-chained KLT route, `frontend/tracker.py`): frame n's KLT is
+    dispatched from frame n-1's device outputs, before frame n-1's read
+    has been finished on the host.
 `flush()` completes the deferred work at the end of a stream. The solves
-take the same values under every schedule; the published poses differ
-by when their anchor moves. `chained_frontend` is not ported.
+take the same values under the first three schedules; the published
+poses differ by when their anchor moves. The chained route tracks other
+keypoints (the host's drops and detections land a frame late), so its
+solves differ.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..frontend.tracker import detect_no_translation
+from ..frontend.tracker import chained_frontend_missing, detect_no_translation
 from ..ransac import pnp as pnp_mod
 from ..utils.timing import StageTimes
 from . import nputil
@@ -81,16 +87,14 @@ class VIOPipeline:
     """Push IMU + camera samples, get poses. Runs on the card unless
     `device="cpu"` is asked for."""
 
-    # the JAX package's device-chained KLT frontend (EXPERIMENTAL there)
-    UNPORTED_SCHEDULES = ("chained_frontend",)
-
     def __init__(self, config: Config, tracker, device="cuda",
                  times: Optional[StageTimes] = None):
-        for flag in self.UNPORTED_SCHEDULES:
-            if getattr(config, flag):
-                raise ValueError(
-                    f"Config.{flag}=True is not ported to xrslam_tpu_torch "
-                    "(ROADMAP.md, queue 1, 'Left behind')")
+        # the JAX package ignores the flag without its prerequisites; the
+        # port refuses it
+        missing = chained_frontend_missing(config) if config.chained_frontend else []
+        if missing:
+            raise ValueError("Config.chained_frontend=True needs the two-frame schedule "
+                             "with PARSAC off: set " + ", ".join(missing))
         self.config = config
         self.tracker = tracker
         self.device = compute_device(device)
@@ -324,7 +328,7 @@ class VIOPipeline:
         """Complete the deferred work at the end of a stream: the
         tracker's frame in flight, the queued backend stages, the
         pending write-backs."""
-        self.tracker.finish_pending()
+        self.tracker.flush()
         self._run_deferred_issue()
         if self.swt is not None:
             self.swt.materialize_pending()
@@ -472,6 +476,9 @@ class SyntheticTracker:
 
     def finish_pending(self) -> None:
         """Nothing is ever in flight."""
+
+    def flush(self) -> None:
+        """Nothing is ever in flight or staged."""
 
     def track_frame(self, tracker_map: PipelineMap, frame: FrameRec,
                     rider=None, between=None) -> None:

@@ -14,9 +14,10 @@ drives use are committed in `io/data` (`wave_seed3_l500.npy`,
 `wave_seed0_l96.npy`, the multi-sequence drive's `wave_seed{5,...}_l500.npy`;
 `object_seed7_n80.npy`, the object's unit draw). `circle_scene` takes
 its landmarks as `landmarks=` too; its committed float64 draws at seed 0
-(`circle_seed0_l{24,248,376,2040}.npy`) are the sizes that
+(`circle_seed0_l{24,248,376,1016,2040}.npy`) are the sizes that
 `demo_window_problem` is called with by `tools/run_scaling.py` (L = 32,
-256) and `chip_smoke.py` (K=12, L=384 and K=32, L=2048). Every committed
+256), `tools/ab_assemble.py` (L = 32, 384, 1024) and `chip_smoke.py`
+(K=12, L=384 and K=32, L=2048). Every committed
 draw is written from the JAX package by
 `PYTHONPATH=. python tests/test_torch_convert.py --write` (wave and
 object) and `PYTHONPATH=. python tests/test_torch_synthetic.py --write`
@@ -47,7 +48,8 @@ DEFAULT_LANDMARKS = {(3, 500): "wave_seed3_l500.npy",
 # moving_object's jax.random.uniform draw on [0, 1), keyed (seed, n_points)
 DEFAULT_OBJECT_DRAWS = {(7, 80): "object_seed7_n80.npy"}
 # circle_scene's float64 landmarks, keyed (seed, n_landmarks)
-DEFAULT_CIRCLE_LANDMARKS = {(0, n): f"circle_seed0_l{n}.npy" for n in (24, 248, 376, 2040)}
+DEFAULT_CIRCLE_LANDMARKS = {(0, n): f"circle_seed0_l{n}.npy"
+                            for n in (24, 248, 376, 1016, 2040)}
 
 
 class Scene(NamedTuple):
@@ -397,3 +399,45 @@ def demo_window_problem(K: int, L: int, dtype=torch.float64, stride: int = 2,
     p_bc = torch.tensor([0.02, -0.01, 0.03], dtype=dtype)
     return window_problem(scene, range(0, K * stride, stride), L=L, q_bc=q_bc,
                           p_bc=p_bc, dtype=dtype, device=device)
+
+
+def perturbed_demo_window(K: int, L: int, seed: int, device=None):
+    """`demo_window_problem(K, L)` in float64, its state perturbed off
+    the truth from a numpy seed (frame 0 kept; tests/helpers.perturb_state's
+    scales): rotation 0.01 rad, position and velocity 0.02, biases 0.002,
+    inverse depths 2%. The truth's residuals are rounding noise; these
+    are O(1), so b, the cost and a solve mean something."""
+    state, data = demo_window_problem(K, L)
+    rng = np.random.default_rng(seed)
+    keep = np.ones((K, 1))
+    keep[0] = 0.0
+
+    def d(scale):
+        return torch.as_tensor(scale * rng.normal(size=(K, 3)) * keep)
+
+    q = lie.quat_normalize(lie.quat_mul(state.q, lie.expmap(d(0.01))))
+    p, v, bg, ba = (state.p + d(0.02), state.v + d(0.02), state.bg + d(0.002),
+                    state.ba + d(0.002))
+    invd = state.inv_depth * torch.as_tensor(1.0 + 0.02 * rng.normal(size=L))
+    state = state._replace(q=q, p=p, v=v, bg=bg, ba=ba, inv_depth=invd)
+    return tree_map(lambda x: x.to(device), state), tree_map(lambda x: x.to(device), data)
+
+
+def scattered_slots(pyr0, pts, init, ok, seed: int = 0):
+    """The chained frontend's K1 input made from a standard one (live
+    slots a prefix): the slots permuted from a numpy seed, a third of them
+    dead, and the dead slots holding stale positions outside the image of
+    `pyr0`'s level 0 (beside it, below it, or far away) in both pts and
+    init, as a chained tracker leaves them."""
+    H, W = pyr0[0].shape
+    rng = np.random.default_rng(seed)
+    N = pts.shape[0]
+    perm = torch.as_tensor(rng.permutation(N), device=pts.device)
+    pts, init, ok = pts[perm].clone(), init[perm].clone(), ok[perm].clone()
+    dead = torch.as_tensor(rng.permutation(N)[:N // 3], device=pts.device)
+    ok[dead] = False
+    stale = rng.choice([-75.0, -1.5, W + 0.5, W + 300.0, 1e5], size=(len(dead), 2))
+    stale[:, 1] = np.where(stale[:, 1] > W, H + 40.0, stale[:, 1])
+    pts[dead] = torch.as_tensor(stale, dtype=torch.float32, device=pts.device)
+    init[dead] = pts[dead] + 3.0
+    return pts.contiguous(), init.contiguous(), ok.contiguous()

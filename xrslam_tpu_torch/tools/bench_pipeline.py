@@ -11,18 +11,22 @@ window, marginalization) on the card, or on the CPU with
 is reported. `--schedule` picks the backend's schedule
 (`core/detail.py`): `sync` (the default, the reference's PC default:
 each frame's backend stage within its own push), `overlap`
-(`worker_overlap`, the one-frame lag) or `pipelined` (`worker_overlap`
+(`worker_overlap`, the one-frame lag), `pipelined` (`worker_overlap`
 + `pipelined_writeback`, the two-frame lag the JAX package's root
-`bench_pipeline.py` runs by default).
+`bench_pipeline.py` runs by default) or `chained` (`pipelined` with the
+device-chained KLT frontend, `chained_frontend`: the counterpart of the
+JAX root bench's `XR_CHAINED=1`).
 
     python -m xrslam_tpu_torch.tools.bench_pipeline --width 752 --height 480 --focal 458 \
         [--schedule pipelined]
 
 Prints ONE JSON line: frames/s of the fastest timed pass and of every
 pass (warm-up first), frames tracked and ATE of that pass, its per-stage
-means (`StageTimes`, ms), the per-frame latency (host clock from a
-frame's image push to the end of the push that processed it, which
-ends in a host read of its pose: median and p90, ms), and on the card
+means (`StageTimes`, ms), its tracker's frames by route (chained,
+standard, re-seeds: `KLTFeatureTracker.stats`), the per-frame latency
+(host clock from a frame's image push to the end of the push that
+processed it, which ends in a host read of its pose: median and p90,
+ms), and on the card
 its name and power limit as nvidia-smi gives them. `main` returns the
 line's values; `bench` returns them with the reported pass (its output
 times `ts`, positions `ps` and final window after `flush`, `window`: t,
@@ -49,7 +53,9 @@ from .run_dataset import evaluate_ate, run_sequence
 # the Config flags of each schedule
 SCHEDULES = {"sync": {},
              "overlap": {"worker_overlap": True},
-             "pipelined": {"worker_overlap": True, "pipelined_writeback": True}}
+             "pipelined": {"worker_overlap": True, "pipelined_writeback": True},
+             "chained": {"worker_overlap": True, "pipelined_writeback": True,
+                         "chained_frontend": True}}
 
 
 def dataset_dir(base: str, frames: int, landmarks: int, width: int, height: int,
@@ -124,6 +130,7 @@ def bench(argv=None):
         swt = slam.pipeline.swt
         window = [] if swt is None else [(f.t, f.q, f.p, f.v) for f in swt.map.all_frames()]
         passes.append({"seconds": dt, "ts": ts, "ps": ps, "latency": latency, "window": window,
+                       "routes": dict(slam.pipeline.tracker.stats),
                        "stage_ms": {k: v * 1e3 for k, v in sorted(slam.times.means().items())}})
     best = min(passes[args.warmup:], key=lambda r: r["seconds"])
     lat_ms = np.asarray(best["latency"]) * 1e3
@@ -146,6 +153,7 @@ def bench(argv=None):
                        "p90": float(np.percentile(lat_ms, 90)),
                        "frames": int(lat_ms.size)},
         "timings_ms": best["stage_ms"],
+        "tracker_routes": best["routes"],
         "dataset": ds_dir,
     }
     print(json.dumps(out))

@@ -39,7 +39,11 @@ the tracker's frame in flight, the queued backend stages of
 `worker_overlap`, the pending write-backs), so that the frame states it
 writes are solved; the JAX package lands only the write-backs
 (`xrslam_tpu/utils/checkpoint.py:170`), and its overlapped schedules
-lose the queued frame. The window tracker's other staged per-frame
+lose the queued frame. Under `chained_frontend` the flush drops what
+the tracker staged for the next frame (its slot update and the first
+observations of its new detections, `KLTFeatureTracker.flush`): nothing
+of them is saved, and the next frame of either pipeline takes the
+standard route. The window tracker's other staged per-frame
 values (the PARSAC prediction `_pred_parsac`, the IMU prediction
 `_pred_frame`, the solved window `_last_window`) are each set and
 consumed inside one frame's `track()` or overwritten by the next frame

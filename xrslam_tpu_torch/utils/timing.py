@@ -33,3 +33,20 @@ class StageTimes:
 
     def means(self) -> Dict[str, float]:
         return {k: self._total[k] / self._count[k] for k in self._total}
+
+
+def mean_ms(fn, reps: int, device) -> float:
+    """Milliseconds per call of fn() over `reps` calls after one untimed
+    call, on the host clock ending in a device sync on a CUDA device."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) / reps * 1e3
