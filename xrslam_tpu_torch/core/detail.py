@@ -56,6 +56,7 @@ import torch
 from ..config import Config
 from ..frontend.tracker import chained_frontend_missing, detect_no_translation
 from ..ransac import pnp as pnp_mod
+from ..utils.fetch import fetch_packed
 from ..utils.timing import StageTimes
 from . import nputil
 from .initializer import Initializer
@@ -240,7 +241,8 @@ class VIOPipeline:
                 f.imu_a = np.stack([s[2] for s in take])
                 self._last_taken = take[-1]
             self._last_frame_t = f.t
-            self._process_frame(f)
+            with self.times.frame(f.id, kind="init" if self.swt is None else "track"):
+                self._process_frame(f)
 
     def _process_frame(self, frame: FrameRec):
         # every frame is tracked; every Nth detects and reaches the
@@ -393,7 +395,7 @@ class VIOPipeline:
             torch.as_tensor(valid, device=dev),
             torch.as_tensor(frame.sqrt_inv_cov2, device=dev),
             iters=cfg.solver_iteration_limit)
-        qp = torch.cat([q_wc2, p_wc2]).cpu().numpy()    # one read
+        qp = fetch_packed(torch.cat([q_wc2, p_wc2]))    # one read
         q_b2 = nputil.quat_normalize(
             nputil.quat_mul(qp[:4], nputil.quat_conj(frame.q_bc)))
         p_b2 = qp[4:] - nputil.quat_rotate(q_b2, frame.p_bc)

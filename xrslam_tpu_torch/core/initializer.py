@@ -26,6 +26,7 @@ from ..geometry import homography as homo_mod
 from ..geometry.essential import decompose_essential
 from ..imu import preintegration as pre
 from ..ransac import stereo as stereo_mod
+from ..utils.fetch import fetch_packed
 from ..utils.timing import StageTimes
 from . import nputil
 from .map import FrameRec, PipelineMap
@@ -97,6 +98,7 @@ class Initializer:
 
     # ------------------------------------------------------------------
     def initialize(self) -> Optional[SlidingWindowTracker]:
+        self.times.count("initializer_attempts")
         if self.map is None:
             return None
         if not self.init_sfm():
@@ -172,8 +174,8 @@ class Initializer:
             self.generator, T(h1), T(h2), valid=torch.as_tensor(vv, device=dev),
             threshold=0.7 / fu, n_hyp=64)
         RE1, RE2, TE = decompose_essential(E)
-        RH1, RH2, TH1, TH2, pure, RE1, RE2, TE = (
-            x.cpu().numpy() for x in (RH1, RH2, TH1, TH2, pure, RE1, RE2, TE))
+        RH1, RH2, TH1, TH2, pure, RE1, RE2, TE = fetch_packed(
+            (RH1, RH2, TH1, TH2, pure, RE1, RE2, TE))
         if bool(pure):
             return False
         Rs, Ts = [], []
@@ -365,7 +367,7 @@ class Initializer:
             T(np.broadcast_to(self.ba, (n_int, 3))), self.noise,
             torch.as_tensor(counts, device=dev), compute_sqrt_inv=False,
             steps=int(counts.max()) if n_int else 0)
-        host = pre.PreintDelta(*(x.cpu().numpy() for x in batch))
+        host = fetch_packed(batch)
         self.deltas = [None] + [pre.PreintDelta(*(x[j] for x in host))
                                 for j in range(n_int)]
 

@@ -64,6 +64,7 @@ from ..imu import preintegration as pre
 from ..ransac import parsac as parsac_mod
 from ..ransac import pnp as pnp_mod
 from ..ransac import stereo as stereo_mod
+from ..utils import timing
 from ..utils.fetch import fetch_packed, fetch_packed_start
 from ..utils.timing import StageTimes
 from . import nputil
@@ -261,7 +262,8 @@ class SlidingWindowTracker:
         CUDA device (nothing to wait for on the CPU)."""
         self.stats["budget_syncs"] += 1
         if result.p.is_cuda:
-            torch.cuda.synchronize(result.p.device)
+            with timing.host_wait():
+                torch.cuda.synchronize(result.p.device)
 
     def _note_solve(self, variant: str, result, iterations: int, t0: float) -> None:
         """Start-up timing of a solve variant begun at `t0`
@@ -556,6 +558,8 @@ class SlidingWindowTracker:
                     self.stats["judge_true"] += 1
                     self.update_track_status()
         verdict = self._keyframe_decision()
+        self.times.tag(self.map.frames[-1].id,
+                       kind="subframe" if verdict == "subframe" else "keyframe")
         if verdict != "subframe":
             if any(f.kp_depth is not None for f in self.map.all_frames()):
                 self.stats["depth_keyframes"] += 1

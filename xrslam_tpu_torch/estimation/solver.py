@@ -44,6 +44,7 @@ from torch.func import vmap
 
 from . import factors, gram
 from .window import ES_SIZE, WindowData, WindowState, retract
+from ..utils import timing
 from ..utils.tree import tree_map
 
 
@@ -271,7 +272,17 @@ def _lm(state: WindowState, data: WindowData, opts: SolveOptions, assemble_fn,
         step_fn):
     """LM with deferred accept/reject over `assemble_fn` and `step_fn`
     (one window, or a batch whose rows each keep their own cost, λ and
-    accept/reject)."""
+    accept/reject). Inside a frame the loop is the stage `lm_solve` of
+    the frame's record, which counts its `lm_iterations`."""
+    rec = timing.active()
+    if rec is None:
+        return _lm_loop(state, data, opts, assemble_fn, step_fn)
+    with rec.stage("lm_solve"):
+        rec.count("lm_iterations", opts.iterations)
+        return _lm_loop(state, data, opts, assemble_fn, step_fn)
+
+
+def _lm_loop(state, data, opts, assemble_fn, step_fn):
     sys_best = assemble_fn(state, data, opts)
     cost0 = sys_best[5]
     cost_best = cost0

@@ -48,7 +48,7 @@ from ..core import nputil
 from ..core.map import FrameRec, PipelineMap
 from ..ransac import stereo as stereo_mod
 from ..utils import inspection
-from ..utils.fetch import fetch_packed_start
+from ..utils.fetch import fetch_packed, fetch_packed_start
 from ..utils.timing import StageTimes
 from . import image as img_ops
 from . import klt
@@ -694,8 +694,8 @@ def detect_no_translation(generator, bearings_prev, bearings_next, valid,
         torch.as_tensor(bearings_next, device=dev),
         valid=torch.as_tensor(valid, device=dev),
         threshold=np.pi / 180.0 * cfg.rotation_ransac_threshold)
-    R_rot = R_rot.cpu().numpy()
-    r_mask = r_mask.cpu().numpy() & valid
+    R_rot, r_mask = fetch_packed((R_rot, r_mask))
+    r_mask = r_mask & valid
     if r_mask.sum() > 0:
         cosang = np.clip(np.sum((bearings_prev @ R_rot.T) * bearings_next,
                                 axis=1), -1, 1)

@@ -36,9 +36,12 @@ reached over a network tunnel:
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from .timing import host_wait
 from .tree import tree_map
 
 # every piece of the packed buffer starts on this many bytes, so that
@@ -92,7 +95,9 @@ class FetchHandle:
         """The tree with numpy arrays for its tensors (waits for the
         copy if it has not landed)."""
         if not self._done:
-            self._event.synchronize()
+            # a handle that arrived (its rider completed) does not wait
+            with contextlib.nullcontext() if self.arrived else host_wait():
+                self._event.synchronize()
             buf = self._host.numpy()
             for i, off, shape, dt in self._layout:
                 n = int(np.prod(shape, dtype=np.int64))

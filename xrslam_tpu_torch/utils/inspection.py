@@ -1,5 +1,6 @@
 """Inspection: named debug/metrics taps (a copy of
-`xrslam_tpu/utils/inspection.py`, with the same slot names).
+`xrslam_tpu/utils/inspection.py`, with the slot names the port writes
+or reads; stage times are in `utils.timing`).
 
 The reference exposes internal quantities (timings, biases, landmarks,
 misalignment angle) through a global slot table keyed by an enum
@@ -18,13 +19,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional
 
 # slot names used across the pipeline (reference inspection.h:41-57)
-FEATURE_TRACKER_TIME = "feature_tracker_time"
-BUNDLE_ADJUSTOR_SOLVE_TIME = "bundle_adjustor_solve_time"
-BUNDLE_ADJUSTOR_MARGINALIZATION_TIME = "bundle_adjustor_marginalization_time"
 FEATURE_TRACKER_FPS = "feature_tracker_fps"
-ANGLE_MISALIGNMENT = "feature_tracker_angle_misalignment"
-SLIDING_WINDOW_LANDMARKS = "sliding_window_landmarks"
-SLIDING_WINDOW_TRACK_NUM = "sliding_window_track_num"
 CURRENT_BG = "sliding_window_current_bg"
 CURRENT_BA = "sliding_window_current_ba"
 # painter taps (reference InspectPainter, inspection.h:41-57): the
