@@ -40,6 +40,14 @@
      eps * sum|term|, and the kernel may be at most 4x as far off as the
      plain version; two launches bit-equal; landmarks at inverse depth 0
      (the 1e-12 guard) within 1e-3 of their largest entry;
+   - K3 preint_gram (`gram.preint_factor_gram`, the preintegration
+     factor's block that `solver.assemble` and `marginalize_frame`
+     take): `io.synthetic.perturbed_demo_window` at the main path's
+     K=12 and K=11 (and K=2, one pair: the latency floor) in float64,
+     onto accumulators, against `preint_factor_gram_plain` (the
+     autodiff composition) and its closed-form version, each output's
+     max |Δ| within 1e-11 of its largest entry; two launches bit-equal,
+     H exactly symmetric; timed beside the plain version;
 4. holds one IMU-PARSAC PnP call (256 points, 256 hypotheses, f64) on
    the card to itself (two calls from equally seeded generators,
    bit-equal) and to the CPU on the card's minimal samples (T 1e-9,
@@ -48,7 +56,7 @@
    geometry (752x480, focal 458, 500 landmarks, seed 3) through
    `api.XRSLAM` with IMU and images — once to warm up (20 frames), then
    timed with the kernel launch counts reset just before it; fails
-   unless both kernels launched, the fused K2 entry among them, K1's
+   unless all three kernels launched, the fused K2 entry among them, K1's
    fused entry once per tracked frame pair and its entry 1 never, no
    image-wide Scharr call, >= 60 frames tracked and ATE <= 0.25 m;
    then holds the four analytic frame Jacobians
@@ -151,7 +159,7 @@
 12. the benchmark (`tools.bench_pipeline.main`) at 752x480, focal 458,
    one timed pass of 75 frames (no warm-up pass); fails unless its JSON
    line parses, >= 60% of the frames were tracked, ATE <= 0.25 m and
-   both kernels launched as in 5; prints the line (frames/s, per-frame
+   all three kernels launched as in 5; prints the line (frames/s, per-frame
    latency median and p90, stage means).
 12b. the schedules, in processes of their own started beside 11: (a)
    the same benchmark pass with `--schedule pipelined` (`worker_overlap`
@@ -203,7 +211,7 @@ Beside these:
   loaded with ctypes drives the main scene's first 45 frames at 752x480
   through XRSLAMCreate / XRSLAMPushSensorData / XRSLAMRunOneFrame /
   XRSLAMGetResult on the card; fails unless half of the frames after
-  frame 28 tracked, ATE <= 0.25 m and both kernels launched as in 5;
+  frame 28 tracked, ATE <= 0.25 m and all three kernels launched as in 5;
   then `tests/data/capi_roundtrip.c`, compiled against native/XRSLAM.h
   and the shim, runs as a process on the card and must print every
   CAPI_* line (where Python is not a shared library the link cannot
@@ -359,6 +367,10 @@ FACTOR_FLOPS = 490
 # (7 each). The fused entry also filters each pass's (win+1)^2 sample
 # block: per pixel, x: three column smoothings (5) and a difference, y:
 # three row differences and a smoothing (5).
+# K3 a pair: U times [r | J_i | J_j] (15 x 31 x 15 multiply-adds), the
+# Gram terms of its four 15x15 blocks and two 15-vectors (15 multiply-adds
+# each), the unweighted factor (~1,000).
+PREINT_FLOPS_PER_PAIR = 2 * 15 * 31 * 15 + 2 * 15 * (4 * 225 + 2 * 15) + 1000
 KLT_FLOPS_PER_TAP = 12
 KLT_WINDOW_FLOPS = 21
 KLT_SCHARR_FLOPS = 24
@@ -907,6 +919,63 @@ def factor_gram_phase(dev) -> dict:
     return res
 
 
+def preint_gram_phase(dev) -> dict:
+    """K3 at the main path's window sizes (K=12 keyframe windows, K=11
+    subwindows) and at K=2 (one pair, the latency floor), float64,
+    against its plain version (the autodiff composition it replaced)
+    and the closed form."""
+    import torch
+
+    from xrslam_tpu_torch.estimation import factors, gram
+    from xrslam_tpu_torch.io.synthetic import perturbed_demo_window
+
+    res = {}
+    for K in (12, 11, 2):
+        state, data = perturbed_demo_window(K, 32, seed=K, device=dev)
+        mask = factors.preint_pair_mask(data)
+        rng = np.random.default_rng(K)
+        A = rng.normal(size=(K * 15, K * 15))
+        H0 = torch.as_tensor((A + A.T).reshape(K, 15, K, 15), device=dev)
+        b0 = torch.as_tensor(rng.normal(size=(K, 15)), device=dev)
+
+        def kernel():
+            return gram.preint_factor_gram_cuda(state, data, mask, H0, b0)
+
+        def plain():
+            return gram.preint_factor_gram_plain(state, data, mask, H0, b0)
+
+        out = kernel()
+        torch.cuda.synchronize()
+        one = {}
+        for what, ref in (("autodiff", plain()), ("closed", gram.preint_factor_gram_plain(
+                state, data, mask, H0, b0, jac=factors.preint_residual_jac_closed))):
+            rel = [float((o - e).abs().max() / e.abs().max().clamp_min(1e-300))
+                   for o, e in zip(out, ref)]
+            one[f"max_rel_err_{what}"] = max(rel)
+            if not max(rel) <= 1e-11:
+                fail(f"K3 K={K} against the {what} plain version: max |Δ| / max |ref| "
+                     f"{dict(zip(('H', 'b', 'cost'), rel))}")
+        check_repeat(f"K3 K={K}", kernel)
+        Hs = out[0].reshape(K * 15, K * 15)
+        if not torch.equal(Hs, Hs.T):
+            fail(f"K3 K={K}: H is not exactly symmetric")
+        one.update(timed_pair(kernel, plain))
+        ins = (state.q, state.p, state.v, state.bg, state.ba, data.q_bi, data.p_bi,
+               *(getattr(data.preint, f) for f in ("t", "q", "p", "v", "sqrt_inv_cov",
+                                                   "dq_dbg", "dp_dbg", "dp_dba", "dv_dbg",
+                                                   "dv_dba")),
+               data.bg_lin, data.ba_lin, mask, H0, b0)
+        one.update(bound(nbytes(*ins, *out), (K - 1) * PREINT_FLOPS_PER_PAIR, 8))
+        res[f"K{K}"] = one
+        print(f"K3 preint_factor_gram K={K} f64: kernel {one['ms']:.4f} ms (device "
+              f"alone {one['device_ms']:.4f}), plain {one['plain_ms']:.4f} ms, bound "
+              f"{one['bound_ms'] * 1e3:.3f} us by {one['bound_by']}; max |Δ| / max |ref| "
+              f"{one['max_rel_err_autodiff']:.2e} (autodiff), "
+              f"{one['max_rel_err_closed']:.2e} (closed form), repeat bit-equal, "
+              f"H symmetric", flush=True)
+    return res
+
+
 def factor_gram_bound(state, data, out) -> dict:
     """K2 entry 2's bound on one window's inputs: each input read once
     and each output written once; the factor and Gram operations of the
@@ -1008,7 +1077,7 @@ def counted_drive(slam, seq, dev, max_frames=None, poisson_args=None) -> dict:
 
 
 def check_image_path(res: dict, what: str, min_tracked: int = 60) -> None:
-    """Fail unless an image drive went through both kernels: K2's fused
+    """Fail unless an image drive went through all three kernels: K2's fused
     entry, K1's fused entry once per tracked frame pair, K1's entry 1
     and the image-wide Scharr never; and >= `min_tracked` frames
     tracked."""
@@ -2179,7 +2248,7 @@ def bench_phase(dev, out_dir: str, frames: int = BENCH_FRAMES, width: int = 752,
     `schedule`, one timed pass of `frames` frames and no warm-up, with
     the launch counts reset before and read after; its JSON line must
     parse, at least `min_share` of the frames tracked, ATE <= 0.25 m, and
-    both kernels launched as in the main drive. The result keeps the
+    all three kernels launched as in the main drive. The result keeps the
     pass (`run`: output times, positions, final window)."""
     import io
     import math
@@ -2863,11 +2932,13 @@ def multiseq_phase(dev, out_dir: str, n_seq: int = MULTISEQ_N,
                        check_first=True, seeds=seeds or multiseq.SEEDS)
     seq, bat = res["sequential"], res["batched"]
     for mode, r in (("sequential", seq), ("batched", bat)):
-        r["launches"] = {"klt_level": r["k1_launches"], "reproj_gram": r["k2_launches"]}
+        r["launches"] = {"klt_level": r["k1_launches"], "reproj_gram": r["k2_launches"],
+                         "preint_gram": r["k3_launches"]}
         print(f"multiseq {mode} ({n_seq} sequences x {frames} frames, {width}x{height}): "
               f"{r['frames']} frames in {r['wall_s']:.1f} s, {r['agg_fps']:.3f} frames/s "
               f"in all; K2 {r['k2_launches']} calls ({r['k2_per_seq_frame']:.2f} a "
-              f"sequence-frame, batched {r['k2_batched']}), K1 {r['k1_launches']} "
+              f"sequence-frame, batched {r['k2_batched']}), K3 {r['k3_launches']} "
+              f"(batched {r['k3_batched']}), K1 {r['k1_launches']} "
               f"({r['k1_per_seq_frame']:.2f}); per sequence (tracked after frame "
               f"{multiseq.BACKEND_START} / of, ATE m): " + ", ".join(
                   f"{o['tracked_after_start']}/{o['frames_after_start']} "
@@ -2885,8 +2956,9 @@ def multiseq_phase(dev, out_dir: str, n_seq: int = MULTISEQ_N,
                 fail(f"multiseq {mode}, sequence {i} (seed {res['seeds'][i]}): "
                      f"{o['tracked_after_start']} tracked after frame "
                      f"{multiseq.BACKEND_START} (need {need}), ATE {o['ate_m']}")
-    if bat["k2_batched"]["launches"] == 0:
-        fail("multiseq batched: no K2 call served more than one window")
+    if bat["k2_batched"]["launches"] == 0 or bat["k3_batched"]["launches"] == 0:
+        fail(f"multiseq batched: no K2 or no K3 call served more than one window "
+             f"(K2 {bat['k2_batched']}, K3 {bat['k3_batched']})")
     if fc is None or not fc["max_abs_err"] <= MULTISEQ_TOL:
         fail(f"multiseq batched: first flush against single solves: {fc}")
     res["diverged"] = [
@@ -3358,6 +3430,7 @@ def main(argv=None) -> None:
     k2_gram = phase("reproj_gram", gram_phase, dev)
     k2 = phase("reproj_factor_gram", factor_gram_phase, dev)
     k2_batch = phase("reproj_factor_gram_batch", factor_gram_batch_phase, dev)
+    k3 = phase("preint_factor_gram", preint_gram_phase, dev)
     repeat = phase("parsac_repeat", parsac_repeat_phase, dev)
 
     from xrslam_tpu_torch.tools.make_dataset import render_sequence
@@ -3494,7 +3567,8 @@ def main(argv=None) -> None:
                        "k1_klt_level": k1_level, "k1_klt_track": k1,
                        "k2_reproj_gram": k2_gram,
                        "k2_reproj_factor_gram": k2,
-                       "k2_reproj_factor_gram_batched": k2_batch, "drive": drive,
+                       "k2_reproj_factor_gram_batched": k2_batch,
+                       "k3_preint_factor_gram": k3, "drive": drive,
                        "native": nat, "capi": capi, "ros_node": ros, "multiseq": mseq,
                        "parsac_repeat": repeat, "parsac_drive": parsac_drive,
                        "visual_pnp_drive": pnp_drive, "mobile_drive": mobile,

@@ -16,6 +16,9 @@ replaced by their plain versions that count a launch as the kernel's
 wrappers do, and torch's sync debug mode (CUDA only) a no-op: every
 check of the two phases runs here, at the rehearsal's frame counts.
 
+K3's phase runs at its sizes with the wrapper replaced by the
+closed-form plain version and the CUDA timers stubbed.
+
 The phases of the batched K2 entry, the native runtime, the C ABI and
 the ROS node run on the CPU the same way: the batched entry at K_sub=11,
 L=384, N=4 with the wrapper replaced by a counting plain version; the
@@ -155,8 +158,13 @@ def counting_plain_kernels(monkeypatch):
                                 windows=state.q.shape[0] if state.q.dim() == 3 else 1)
         return gram.reproj_factor_gram_plain(state, data)
 
+    def k3(state, data, mask, H=None, b=None):
+        build.PREINT_GRAM.count(windows=state.q.shape[0] if state.q.dim() == 3 else 1)
+        return gram.preint_factor_gram_plain(state, data, mask, H, b)
+
     monkeypatch.setattr(klt, "track_keypoints", k1)
     monkeypatch.setattr(gram, "reproj_factor_gram", k2)
+    monkeypatch.setattr(gram, "preint_factor_gram", k3)
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a, **k: None)
 
 
@@ -361,6 +369,29 @@ def test_factor_gram_batch_phase_rehearsal(monkeypatch):
     assert res["active_observations"] > 4 * 11 * 384 // 2
 
 
+def test_preint_gram_phase_rehearsal(monkeypatch):
+    """K3's phase at K=12, 11 and 2 with the wrapper replaced by the
+    closed-form plain version: its agreement, repeat and symmetry checks
+    and its bound."""
+    from xrslam_tpu_torch.estimation import factors
+
+    def k3(state, data, mask, H=None, b=None):
+        return gram.preint_factor_gram_plain(state, data, mask, H, b,
+                                             jac=factors.preint_residual_jac_closed)
+
+    monkeypatch.setattr(gram, "preint_factor_gram_cuda", k3)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=20, warmup=3: (fn(), 2.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, calls=20, reps=10: (fn(), 0.5)[1])
+    res = chip_smoke.preint_gram_phase(torch.device("cpu"))
+    assert set(res) == {"K12", "K11", "K2"}
+    for one in res.values():
+        assert one["max_rel_err_closed"] == 0.0 and one["max_rel_err_autodiff"] < 1e-14
+        assert one["ms"] == one["plain_ms"] == 2.0 and one["device_ms"] == 0.5
+        assert one["bound_by"] == "bytes" and one["bound_ms"] > 0
+    assert res["K12"]["flops"] == 11 * chip_smoke.PREINT_FLOPS_PER_PAIR
+
+
 def test_native_and_ros_phases_rehearsal(monkeypatch, tmp_path):
     """The native phase on a 12-frame 320x240 main drive (plain kernels
     counting), then the ROS node phase on 20 frames of a rendered
@@ -415,6 +446,7 @@ def test_multiseq_phase_rehearsal(monkeypatch, tmp_path):
     res = chip_smoke.multiseq_phase(torch.device("cpu"), str(tmp_path), n_seq=2, frames=44,
                                     width=320, height=240, focal=260.0, seeds=(3, 32))
     assert res["batched"]["k2_batched"]["launches"] > 0
+    assert res["batched"]["k3_batched"]["launches"] > 0
     assert res["batched"]["launches"]["reproj_gram"] < res["sequential"]["launches"][
         "reproj_gram"]
 

@@ -3,7 +3,8 @@
 `compute_cost`, `_solve_from`, `_lm`, `solve_window_core`,
 `assemble_batch`, `_solve_from_batch` and `solve_window_batch` copied
 unchanged; the helpers the sharded mode left as they were are
-imported). `tests/test_torch_sharded.py` holds
+imported, `_preint_blocks` from `gram.preint_blocks`, where it moved
+unchanged). `tests/test_torch_sharded.py` holds
 the present solver with `group=None` to it bit for bit, in one process,
 so that the comparison does not depend on the host's math libraries.
 """
@@ -14,8 +15,8 @@ import torch
 from torch.func import vmap
 
 from xrslam_tpu_torch.estimation import factors, gram
-from xrslam_tpu_torch.estimation.solver import (SolveOptions, _free_masks,
-                                                _preint_blocks, _select)
+from xrslam_tpu_torch.estimation.gram import preint_blocks as _preint_blocks
+from xrslam_tpu_torch.estimation.solver import SolveOptions, _free_masks, _select
 from xrslam_tpu_torch.estimation.window import ES_SIZE, WindowData, WindowState, retract
 from xrslam_tpu_torch.utils.tree import tree_map
 

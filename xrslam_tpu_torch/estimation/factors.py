@@ -7,7 +7,9 @@ error-state retraction at δ = 0, `torch.func.jacrev`/`jacfwd` under
 under `jax.vmap`. The preintegration factor (30 inputs, 15 outputs)
 uses reverse mode: PyTorch's forward mode under vmap runs several
 elementwise ops through Python reference decompositions, ~10x slower
-per call here.
+per call here. `reproj_residual_jac_closed` and
+`preint_residual_jac_closed` write two of them out in closed form, the
+arithmetic of kernels K2 and K3 (estimation/gram.py).
 """
 
 from __future__ import annotations
@@ -219,11 +221,95 @@ def preint_residual_jac(state: WindowState, data: WindowData):
         state.ba[idx_i], state.q, state.p, state.v, state.bg, state.ba,
         data.preint, data.bg_lin, data.ba_lin, data.q_bi[idx_i],
         data.p_bi[idx_i], data.q_bi, data.p_bi)
-    m = data.preint_mask & (idx_j > 0)
+    m = preint_pair_mask(data)
     mf = m.to(r.dtype)
     r = r * mf[:, None]
     J = J * mf[:, None, None]
     return r, J[..., 0:15], J[..., 15:30], m
+
+
+def preint_pair_mask(data: WindowData) -> torch.Tensor:
+    """(..., K) the preintegration pairs that are factors: entry j > 0
+    with its preintegration valid."""
+    K = data.preint_mask.shape[-1]
+    return data.preint_mask & (torch.arange(K, device=data.preint_mask.device) > 0)
+
+
+def preint_residual_jac_closed(state: WindowState, data: WindowData):
+    """`preint_residual_jac` in closed form: the same residual and the
+    Jacobians of its retraction written out over the K pairs, no
+    `torch.func`. It is the arithmetic of kernel K3 (csrc/preint_gram.cu).
+
+    Pair j couples i = j-1 and j. With the IMU frames R_qi = R_i·R_bi,
+    R_qj = R_j·R_bj, the bias correction φ0 = dq_dbg·(bg_i − bg_lin),
+    E = q_corr*·qi*·qj and r_q = log(E): a rotation perturbation of body
+    frame i is one of R_biᵀδ of the IMU frame, so
+    ∂r_q/∂θ_i = −Jr⁻¹(r_q)·R_qjᵀ·R_i, ∂r_q/∂θ_j = Jr⁻¹(r_q)·R_bjᵀ and
+    ∂r_q/∂bg_i = −Jr⁻¹(r_q)·R(E)ᵀ·Jr(φ0)·dq_dbg. With y_p = R_qiᵀ·a_p and
+    y_v = R_qiᵀ·a_v (the bracketed vectors of r_p and r_v),
+    ∂r_p/∂θ_i = [y_p]×·R_biᵀ + R_biᵀ·[p_bi,i]×, ∂r_v/∂θ_i = [y_v]×·R_biᵀ,
+    ∂r_p/∂θ_j = −R_qiᵀ·R_j·[p_bi,j]×; the rest are R_qiᵀ, dt·R_qiᵀ, the
+    bias Jacobians of the delta and ±I. The sqrt information multiplies
+    residual and Jacobians last.
+    """
+    K = state.q.shape[0]
+    dev, dt = state.p.device, state.p.dtype
+    g = torch.as_tensor(GRAVITY, dtype=dt, device=dev)
+    idx_i = torch.clamp(torch.arange(K, device=dev) - 1, min=0)
+    d = data.preint
+    q_i, p_i, v_i, bg_i, ba_i = (x[idx_i] for x in state[:5])
+    q_bi, p_bi = data.q_bi[idx_i], data.p_bi[idx_i]
+    R_i, R_j = lie.quat_to_matrix(q_i), lie.quat_to_matrix(state.q)
+    R_bi, R_bj = lie.quat_to_matrix(q_bi), lie.quat_to_matrix(data.q_bi)
+    qi = lie.quat_mul(q_i, q_bi)
+    qj = lie.quat_mul(state.q, data.q_bi)
+    R_qiT = lie.quat_to_matrix(qi).transpose(-1, -2)
+    R_qjT = lie.quat_to_matrix(qj).transpose(-1, -2)
+    pi = p_i + lie.quat_rotate(q_i, p_bi)
+    pj = state.p + lie.quat_rotate(state.q, data.p_bi)
+    t = d.t[:, None]
+    dbg = (bg_i - data.bg_lin)[..., None]
+    dba = (ba_i - data.ba_lin)[..., None]
+    phi0 = (d.dq_dbg @ dbg)[..., 0]
+    q_corr = lie.quat_mul(d.q, lie.expmap(phi0))
+    E = lie.quat_mul(lie.quat_conj(q_corr), lie.quat_mul(lie.quat_conj(qi), qj))
+    r_q = lie.logmap(E)
+    y_p = (R_qiT @ (pj - pi - t * v_i - 0.5 * t * t * g)[..., None])[..., 0]
+    y_v = (R_qiT @ (state.v - v_i - t * g)[..., None])[..., 0]
+    r_p = y_p - (d.p + (d.dp_dbg @ dbg + d.dp_dba @ dba)[..., 0])
+    r_v = y_v - (d.v + (d.dv_dbg @ dbg + d.dv_dba @ dba)[..., 0])
+    r = torch.cat([r_q, r_p, r_v, state.bg - bg_i, state.ba - ba_i], dim=-1)
+
+    Jr_inv = lie.right_jacobian_inv(r_q)
+    R_biT, R_bjT = R_bi.transpose(-1, -2), R_bj.transpose(-1, -2)
+    eye = torch.eye(3, dtype=dt, device=dev).expand(K, 3, 3)
+    Ji = state.p.new_zeros((K, 15, 15))
+    Jj = state.p.new_zeros((K, 15, 15))
+    Ji[:, 0:3, 0:3] = -Jr_inv @ R_qjT @ R_i
+    Ji[:, 0:3, 9:12] = -(Jr_inv @ lie.quat_to_matrix(E).transpose(-1, -2)
+                        @ lie.right_jacobian(phi0) @ d.dq_dbg)
+    Ji[:, 3:6, 0:3] = lie.hat(y_p) @ R_biT + R_biT @ lie.hat(p_bi)
+    Ji[:, 3:6, 3:6] = -R_qiT
+    Ji[:, 3:6, 6:9] = -t[..., None] * R_qiT
+    Ji[:, 3:6, 9:12] = -d.dp_dbg
+    Ji[:, 3:6, 12:15] = -d.dp_dba
+    Ji[:, 6:9, 0:3] = lie.hat(y_v) @ R_biT
+    Ji[:, 6:9, 6:9] = -R_qiT
+    Ji[:, 6:9, 9:12] = -d.dv_dbg
+    Ji[:, 6:9, 12:15] = -d.dv_dba
+    Ji[:, 9:12, 9:12] = -eye
+    Ji[:, 12:15, 12:15] = -eye
+    Jj[:, 0:3, 0:3] = Jr_inv @ R_bjT
+    Jj[:, 3:6, 0:3] = -R_qiT @ R_j @ lie.hat(data.p_bi)
+    Jj[:, 3:6, 3:6] = R_qiT
+    Jj[:, 6:9, 6:9] = R_qiT
+    Jj[:, 9:12, 9:12] = eye
+    Jj[:, 12:15, 12:15] = eye
+    U = d.sqrt_inv_cov
+    m = preint_pair_mask(data)
+    mf = m.to(dt)
+    return ((U @ r[..., None])[..., 0] * mf[:, None], (U @ Ji) * mf[:, None, None],
+            (U @ Jj) * mf[:, None, None], m)
 
 
 def rotation_residual_jac(state: WindowState, data: WindowData):

@@ -28,11 +28,23 @@ for CPU tensors only, and a wrapper that launches the kernel
 (`reproj_gram_cuda`, `reproj_factor_gram_cuda`), taken for CUDA tensors.
 A wrapper raises on any input the kernel does not take; there is no
 fallback.
+
+`preint_factor_gram(state, data, mask, H, b) -> (H, b, cost)` is kernel
+K3 (csrc/preint_gram.cu), the preintegration factor's part of the same
+normal equations: the K-1 pairs' weighted residuals and Jacobians in
+closed form (`factors.preint_residual_jac_closed`), masked by `mask`,
+their Gram blocks added to the block-tridiagonal part of H and to b, and
+0.5·Σ|r|². Its plain version `preint_factor_gram_plain` is the autodiff
+composition `assemble` and `marginalize_frame` ran before it
+(`factors.preint_residual_jac` + `preint_blocks` + the cost), taken for
+CPU tensors; `preint_factor_gram_cuda` launches K3 for CUDA tensors,
+one window or a batch with a leading axis, in one launch.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import vmap
 
 from . import factors
 from .window import WindowData, WindowState
@@ -281,3 +293,101 @@ def reproj_factor_gram(state: WindowState, data: WindowData):
     fn = _dispatch(state.p, "reproj_factor_gram", reproj_factor_gram_cuda,
                    reproj_factor_gram_plain)
     return fn(state, data)
+
+
+# ---- K3: the preintegration factor ----------------------------------------
+
+
+def preint_blocks(H, b, rp, Ji, Jj, K):
+    """Scatter the preintegration factor blocks (entry j couples frames
+    j-1 and j) into H (K,15,K,15) and b (K,15)."""
+    dt = rp.dtype
+    idx_j = torch.arange(K, device=rp.device)
+    oh_j = torch.eye(K, dtype=dt, device=rp.device)
+    oh_i = torch.nn.functional.one_hot(torch.clamp(idx_j - 1, min=0), K).to(dt)
+    for Ja, oha in ((Ji, oh_i), (Jj, oh_j)):
+        b = b + torch.einsum("na,nk->ka", torch.einsum("nra,nr->na", Ja, rp), oha)
+        for Jb, ohb in ((Ji, oh_i), (Jj, oh_j)):
+            JJ = torch.einsum("nra,nrb->nab", Ja, Jb)
+            H = H + torch.einsum("nab,nk,nm->kamb", JJ, oha, ohb)
+    return H, b
+
+
+def preint_factor_gram_plain(state: WindowState, data: WindowData, mask, H=None,
+                             b=None, jac=factors.preint_residual_jac):
+    """K3 in plain PyTorch: the factors of `jac` (the autodiff composition
+    by default; `factors.preint_residual_jac_closed` gives the kernel's
+    arithmetic), masked by `mask` (K,) (entry 0 is never a factor), their
+    blocks added to H (K,15,K,15) and b (K,15) (zeros where None) by
+    `preint_blocks`. Returns (H, b, 0.5·Σ|r|²). A batch (a leading axis
+    on every field, the mask, H and b) runs the single-window version
+    under `torch.func.vmap`."""
+    K = state.q.shape[-2]
+    batch = tuple(state.q.shape[:-2])
+    H = state.p.new_zeros(batch + (K, 15, K, 15)) if H is None else H
+    b = state.p.new_zeros(batch + (K, 15)) if b is None else b
+    if batch:
+        return vmap(lambda s, d, m, h, g: preint_factor_gram_plain(s, d, m, h, g, jac))(
+            state, data, mask, H, b)
+    r, Ji, Jj, _ = jac(state, data)
+    mf = (mask & (torch.arange(K, device=mask.device) > 0)).to(r.dtype)
+    r = r * mf[:, None]
+    H, b = preint_blocks(H, b, r, Ji * mf[:, None, None], Jj * mf[:, None, None], K)
+    return H, b, 0.5 * torch.sum(r * r)
+
+
+def preint_factor_gram_cuda(state: WindowState, data: WindowData, mask, H=None,
+                            b=None):
+    """K3 on the card: one launch for one window or a batch of N (a
+    leading axis on every field, the mask, H and b; the outputs take it
+    too). H and b are copied and the copies updated; the caller's are
+    left as they were."""
+    if state.q.dim() not in (2, 3):
+        raise ValueError("preint_factor_gram takes one window (q (K,4)) or a batch "
+                         f"(q (N,K,4)), got q {tuple(state.q.shape)}")
+    batch = tuple(state.q.shape[:-2])
+    N = batch[0] if batch else 1
+    K = state.q.shape[-2]
+    dt, dev = state.p.dtype, state.p.device
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"preint_gram kernel takes float32/float64, got {dt}")
+    if dev.type != "cuda":
+        raise ValueError(f"the preint_gram kernel's tensors must be on a CUDA "
+                         f"device, got {dev}")
+    if K < 1 or N < 1:
+        raise ValueError(f"preint_gram kernel takes K >= 1 frames and N >= 1 "
+                         f"windows, got K={K}, N={N}")
+    d = data.preint
+    f3, m3 = batch + (K, 3), batch + (K, 3, 3)
+    args = [_check(name, x, shape, dt, dev) for name, x, shape in (
+        ("state.q", state.q, batch + (K, 4)), ("state.p", state.p, f3),
+        ("state.v", state.v, f3), ("state.bg", state.bg, f3), ("state.ba", state.ba, f3),
+        ("data.q_bi", data.q_bi, batch + (K, 4)), ("data.p_bi", data.p_bi, f3),
+        ("preint.t", d.t, batch + (K,)), ("preint.q", d.q, batch + (K, 4)),
+        ("preint.p", d.p, f3), ("preint.v", d.v, f3),
+        ("preint.sqrt_inv_cov", d.sqrt_inv_cov, batch + (K, 15, 15)),
+        ("preint.dq_dbg", d.dq_dbg, m3), ("preint.dp_dbg", d.dp_dbg, m3),
+        ("preint.dp_dba", d.dp_dba, m3), ("preint.dv_dbg", d.dv_dbg, m3),
+        ("preint.dv_dba", d.dv_dba, m3), ("data.bg_lin", data.bg_lin, f3),
+        ("data.ba_lin", data.ba_lin, f3))]
+    args.append(_check("mask", mask, batch + (K,), torch.bool, dev))
+    H = (torch.zeros(batch + (K, 15, K, 15), dtype=dt, device=dev) if H is None
+         else _check("H", H, batch + (K, 15, K, 15), dt, dev).clone())
+    b = (torch.zeros(batch + (K, 15), dtype=dt, device=dev) if b is None
+         else _check("b", b, batch + (K, 15), dt, dev).clone())
+    cost = torch.empty(batch, dtype=dt, device=dev)
+    err = kbuild.PREINT_GRAM.fn()(
+        *(x.data_ptr() for x in args), H.data_ptr(), b.data_ptr(), cost.data_ptr(),
+        K, N, 1 if dt == torch.float64 else 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(err, "preint_factor_gram")
+    kbuild.PREINT_GRAM.count(windows=N)
+    return H, b, cost
+
+
+def preint_factor_gram(state: WindowState, data: WindowData, mask, H=None, b=None):
+    """K3 (one window, or a batch with a leading axis): plain PyTorch for
+    CPU tensors, the CUDA kernel for CUDA tensors."""
+    fn = _dispatch(state.p, "preint_factor_gram", preint_factor_gram_cuda,
+                   preint_factor_gram_plain)
+    return fn(state, data, mask, H, b)

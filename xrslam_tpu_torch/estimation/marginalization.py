@@ -16,9 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from . import factors
+from . import factors, gram
 from .gram import anchor_onehot
-from .solver import _preint_blocks
 from .window import ES_SIZE, MargPrior, WindowData, WindowState
 from ..utils.tree import tree_map
 
@@ -58,18 +57,14 @@ def marginalize_frame(state: WindowState, data: WindowData, victim: int = 0,
     H = Jm.T @ Jm
     b = Jm.T @ rm
 
-    # (b) preintegration factors j = victim and victim+1
-    rp, Ji, Jj, mp = factors.preint_residual_jac(state, data)
+    # (b) preintegration factors j = victim and victim+1 (kernel K3)
     adj = torch.zeros((K,), dtype=torch.bool, device=dev)
     if victim >= 1:
         adj[victim] = True
     if victim + 1 < K:
         adj[victim + 1] = True
-    sel = (adj & mp).to(dt)
-    Hb = torch.zeros((K, ES_SIZE, K, ES_SIZE), dtype=dt, device=dev)
-    bb = torch.zeros((K, ES_SIZE), dtype=dt, device=dev)
-    Hb, bb = _preint_blocks(Hb, bb, rp * sel[:, None], Ji * sel[:, None, None],
-                            Jj * sel[:, None, None], K)
+    Hb, bb, _ = gram.preint_factor_gram(state, data,
+                                        adj & factors.preint_pair_mask(data))
     H = H + Hb.reshape(KM, KM)
     b = b + bb.reshape(-1)
 

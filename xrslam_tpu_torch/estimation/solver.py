@@ -4,14 +4,16 @@ explicit Schur complement over landmarks (port of
 
 Per iteration: residuals + Jacobian blocks per factor class
 (factors.py), the reprojection factors and their block of the normal
-equations in one call of kernel K2 (gram.reproj_factor_gram), scalar
+equations in one call of kernel K2 (gram.reproj_factor_gram), the
+preintegration factors and theirs in one call of kernel K3
+(gram.preint_factor_gram), scalar
 Schur elimination of the inverse depths, a Jacobi-scaled Cholesky solve
 of the reduced camera system, and LM's accept/reject — kept on the
 device with `torch.where`, so an iteration needs no host sync.
 
 `solve_chained_batch` runs N windows' chained solves as one program on
-a leading batch axis (the JAX package's `jax.vmap`): K2 takes the batch
-in one call, the rest of `assemble` and the step run under
+a leading batch axis (the JAX package's `jax.vmap`): K2 and K3 take the
+batch in one call each, the rest of `assemble` and the step run under
 `torch.func.vmap`, and LM's accept/reject, λ and the slot injection are
 per row.
 
@@ -72,21 +74,6 @@ def _free_masks(data: WindowData, dtype):
     return f, flm
 
 
-def _preint_blocks(H, b, rp, Ji, Jj, K):
-    """Scatter the preintegration factor blocks (entry j couples frames
-    j-1 and j) into H (K,15,K,15) and b (K,15)."""
-    dt = rp.dtype
-    idx_j = torch.arange(K, device=rp.device)
-    oh_j = torch.eye(K, dtype=dt, device=rp.device)
-    oh_i = torch.nn.functional.one_hot(torch.clamp(idx_j - 1, min=0), K).to(dt)
-    for Ja, oha in ((Ji, oh_i), (Jj, oh_j)):
-        b = b + torch.einsum("na,nk->ka", torch.einsum("nra,nr->na", Ja, rp), oha)
-        for Jb, ohb in ((Ji, oh_i), (Jj, oh_j)):
-            JJ = torch.einsum("nra,nrb->nab", Ja, Jb)
-            H = H + torch.einsum("nab,nk,nm->kamb", JJ, oha, ohb)
-    return H, b
-
-
 def _all_reduce(group, *tensors):
     """The tensors summed over `group`'s ranks in one collective."""
     from ..parallel.mesh import all_reduce_sum
@@ -135,18 +122,25 @@ def _assemble_landmarks(state: WindowState, data: WindowData, opts: SolveOptions
     return H, b, Hll, Hfl, bl, cost
 
 
+def _add_preint(sys, state: WindowState, data: WindowData, opts: SolveOptions):
+    """The preintegration factors added to the (reduced) landmark half
+    `sys` by K3 (`gram.preint_factor_gram`): one window, or a batch with
+    a leading axis in one call (a C call cannot run under vmap)."""
+    if not opts.use_preint:
+        return sys
+    H, b, Hll, Hfl, bl, cost = sys
+    H, b, c = gram.preint_factor_gram(state, data, factors.preint_pair_mask(data),
+                                      H, b)
+    return H, b, Hll, Hfl, bl, cost + c
+
+
 def _assemble_frames(sys, state: WindowState, data: WindowData, opts: SolveOptions):
-    """The frame half of `assemble`: adds the preintegration factors
-    and the prior to the (reduced) landmark half `sys`, then eliminates
+    """The rest of the frame half of `assemble`: adds the prior to
+    `sys` (which holds the preintegration factors), then eliminates
     fixed and masked entries."""
     H, b, Hll, Hfl, bl, cost = sys
     K = state.q.shape[0]
     dt = state.p.dtype
-    if opts.use_preint:
-        rp, Ji, Jj, _ = factors.preint_residual_jac(state, data)
-        cost = cost + 0.5 * torch.sum(rp * rp)
-        H, b = _preint_blocks(H, b, rp, Ji, Jj, K)
-
     rm, Jm, _ = factors.marg_residual_jac(state, data)
     cost = cost + 0.5 * torch.sum(rm * rm)
     KM = K * ES_SIZE
@@ -185,7 +179,8 @@ def assemble(state: WindowState, data: WindowData, opts: SolveOptions,
     H, b, Hll, Hfl, bl, cost = _assemble_landmarks(state, data, opts, reproj)
     if group is not None:
         H, b, cost = _all_reduce(group, H, b, cost)
-    return _assemble_frames((H, b, Hll, Hfl, bl, cost), state, data, opts)
+    sys = _add_preint((H, b, Hll, Hfl, bl, cost), state, data, opts)
+    return _assemble_frames(sys, state, data, opts)
 
 
 def compute_cost(state: WindowState, data: WindowData, opts: SolveOptions,
@@ -329,17 +324,17 @@ def solve_window_core(state: WindowState, data: WindowData,
 def assemble_batch(state: WindowState, data: WindowData, opts: SolveOptions,
                    group=None):
     """`assemble` over a batch of N windows (every field with a leading
-    axis of N): K2 in one call over the batch, the other factors and the
-    elimination under `torch.func.vmap`. With `group`, the stacked
-    (N, ...) partials of H, b and the cost are summed between the two
-    vmapped halves."""
+    axis of N): K2 and K3 in one call each over the batch, the other
+    factors and the elimination under `torch.func.vmap`. With `group`,
+    the stacked (N, ...) partials of H, b and the cost are summed between
+    the vmapped landmark half and K3."""
     reproj = gram.reproj_factor_gram(state, data) if opts.use_reproj else None
     H, b, Hll, Hfl, bl, cost = vmap(
         lambda s, d, r: _assemble_landmarks(s, d, opts, r))(state, data, reproj)
     if group is not None:
         H, b, cost = _all_reduce(group, H, b, cost)
-    return vmap(lambda y, s, d: _assemble_frames(y, s, d, opts))(
-        (H, b, Hll, Hfl, bl, cost), state, data)
+    sys = _add_preint((H, b, Hll, Hfl, bl, cost), state, data, opts)
+    return vmap(lambda y, s, d: _assemble_frames(y, s, d, opts))(sys, state, data)
 
 
 def _solve_from_batch(sys, state: WindowState, lam, group=None) -> WindowState:

@@ -39,12 +39,14 @@ SIGNATURES = {
     "klt_track_launch": [_P] * 14 + [_I] * 14 + [_F] * 5 + [_P],
     "reproj_gram_launch": [_P] * 14 + [_I, _I, _I, _I, _P],
     "reproj_factor_gram_launch": [_P] * 19 + [_I, _I, _I, _I, _I, _P],
+    "preint_gram_launch": [_P] * 23 + [_I, _I, _I, _P],
 }
 
 
 class Kernel:
     """One hand-written kernel: its source, the Pallas kernel it
-    replaces, its C entry points and its launch counts."""
+    replaces (or what it replaces where it replaces none), its C entry
+    points and its launch counts."""
 
     def __init__(self, name: str, entries, source: str, replaces: str):
         self.name = name
@@ -79,7 +81,11 @@ REPROJ_GRAM = Kernel("reproj_gram",
                      ("reproj_gram_launch", "reproj_factor_gram_launch"),
                      "xrslam_tpu_torch/csrc/reproj_gram.cu",
                      "xrslam_tpu/estimation/gram.py:182")
-KERNELS = (KLT_LEVEL, REPROJ_GRAM)
+PREINT_GRAM = Kernel("preint_gram", ("preint_gram_launch",),
+                     "xrslam_tpu_torch/csrc/preint_gram.cu",
+                     "no Pallas kernel: the autodiff composition "
+                     "xrslam_tpu/estimation/factors.py:179")
+KERNELS = (KLT_LEVEL, REPROJ_GRAM, PREINT_GRAM)
 
 
 def reset_launch_counts() -> None:

@@ -6,9 +6,9 @@ dispatches (each is one kernel launch, or a few, on a CUDA device).
 
 Counts with a `TorchDispatchMode`. The counts depend on the code path,
 not on the window's size; the path depends on the device: on the card
-(the default), `assemble` takes K2's fused kernel (one C call, which
-the mode does not see; its launches are listed beside the counts),
-and with `--device cpu` its plain version. Views and reshapes are
+(the default), `assemble` takes K2's fused kernel and K3 (one C call
+each, which the mode does not see; their launches are listed beside the
+counts), and with `--device cpu` their plain versions. Views and reshapes are
 dispatched but launch nothing, so a count is an upper bound on launches.
 """
 
@@ -55,9 +55,10 @@ def main(argv=None) -> None:
     lam = torch.as_tensor(1e-4, dtype=state.p.dtype, device=dev)
     r, Jt, Jr6, Jd, _ = factors.reproj_residual_jac_closed(state, data)
     R1 = gram.anchor_onehot(data, args.frames, r.dtype)
+    pmask = factors.preint_pair_mask(data)
     build.reset_launch_counts()
     n_assemble = count(lambda: solver.assemble(state, data, opts))
-    k2_calls = build.REPROJ_GRAM.launches
+    k2_calls, k3_calls = build.REPROJ_GRAM.launches, build.PREINT_GRAM.launches
     out = {
         "reproj_residual_jac (autodiff)": count(
             lambda: factors.reproj_residual_jac(state, data)),
@@ -69,6 +70,12 @@ def main(argv=None) -> None:
         "reproj_factor_gram (what assemble takes)": count(
             lambda: gram.reproj_factor_gram(state, data)),
         "preint_residual_jac": count(lambda: factors.preint_residual_jac(state, data)),
+        "preint_residual_jac_closed": count(
+            lambda: factors.preint_residual_jac_closed(state, data)),
+        "preint_factor_gram_plain": count(
+            lambda: gram.preint_factor_gram_plain(state, data, pmask)),
+        "preint_factor_gram (what assemble takes)": count(
+            lambda: gram.preint_factor_gram(state, data, pmask)),
         "marg_residual_jac": count(lambda: factors.marg_residual_jac(state, data)),
         "assemble": n_assemble,
         "_solve_from": count(lambda: solver._solve_from(sys0, state, lam)),
@@ -77,7 +84,8 @@ def main(argv=None) -> None:
     }
     print(json.dumps({"frames": args.frames, "landmarks": args.landmarks,
                       "device": str(dev), "dispatched_ops": out,
-                      "k2_calls_per_assemble": k2_calls},
+                      "k2_calls_per_assemble": k2_calls,
+                      "k3_calls_per_assemble": k3_calls},
                      indent=1))
 
 

@@ -16,7 +16,7 @@ different trajectories and landmark fields), then drives them two ways:
 
 Prints one JSON line: each mode's frames, wall time, aggregate frames/s,
 per-sequence tracked counts and ATE, K1 and K2 launches per
-sequence-frame; the batched mode's dispatches and the solves they
+sequence-frame, K3's launches; the batched mode's dispatches and the solves they
 replaced; the speedup; the first frame at which the two modes'
 trajectories part, if they do.
 
@@ -200,7 +200,9 @@ def drive(dirs, configs, device, batched: bool, check_first: bool = False) -> di
            "k1_launches": build.KLT_LEVEL.launches,
            "k2_per_seq_frame": build.REPROJ_GRAM.launches / max(frames, 1),
            "k1_per_seq_frame": build.KLT_LEVEL.launches / max(frames, 1),
-           "k2_batched": dict(build.REPROJ_GRAM.batched), "poses": ests}
+           "k2_batched": dict(build.REPROJ_GRAM.batched),
+           "k3_launches": build.PREINT_GRAM.launches,
+           "k3_batched": dict(build.PREINT_GRAM.batched), "poses": ests}
     if broker is not None:
         res.update(batched_dispatches=broker.batched_calls,
                    solo_solves_replaced=broker.solo_equiv,
