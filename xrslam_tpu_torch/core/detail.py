@@ -13,7 +13,12 @@
   - with `visual_pnp_enable`, every tracked frame gets a pose-only PnP
     against the backend's landmarks, published as the latest state (the
     camera-rate pose path; the backend may run at a reduced rate,
-    `sliding_window_tracker_frequent`),
+    `sliding_window_tracker_frequent`). The IMU samples are kept back to
+    the backend's anchor, since the next backend refresh may restart the
+    propagation there, older than the PnP frame. The JAX package drops
+    them at each PnP frame, so that its next pose skips them,
+    propagated from an anchor up to `sliding_window_tracker_frequent`
+    frames back (`tests/test_torch_pnp_chain.py`),
   - with `visual_localization_enable`, every tracked frame offers its
     image and SLAM-frame pose to the installed localizer (throttled by
     the localizer), and once the localizer has registered the SLAM ->
@@ -121,6 +126,7 @@ class VIOPipeline:
         self._prop_cache = None
         self._imu_since_opt: List[tuple] = []
         self._last_frame_t: Optional[float] = None
+        self._last_frame_id: Optional[int] = None
         self._last_taken: Optional[tuple] = None
         self._frame_count = 0
         # camera-rate PnP: tracker-track-id -> landmark world point, and
@@ -241,6 +247,7 @@ class VIOPipeline:
                 f.imu_a = np.stack([s[2] for s in take])
                 self._last_taken = take[-1]
             self._last_frame_t = f.t
+            self._last_frame_id = f.id
             with self.times.frame(f.id, kind="init" if self.swt is None else "track"):
                 self._process_frame(f)
 
@@ -325,6 +332,8 @@ class VIOPipeline:
                 self.swt = None
                 self.initializer = Initializer(self.config, self.device,
                                                times=self.times)
+        if self.swt is None and self._prop is not None:
+            self._trim_while_lost()
 
     def flush(self) -> None:
         """Complete the deferred work at the end of a stream: the
@@ -336,13 +345,30 @@ class VIOPipeline:
             self.swt.materialize_pending()
 
     def _refresh_prop_state(self):
+        """Install the backend's latest state as the propagation anchor;
+        the samples it needs are those after it, which a PnP publish
+        keeps (the anchor may be older than the last PnP frame)."""
         t, q, p, v, bg, ba = self.swt.get_latest_state()
         self._prop = dict(t=t, q=q.copy(), p=p.copy(), v=v.copy(),
                           bg=bg.copy(), ba=ba.copy())
         self._prop_cache = None
         self._imu_since_opt = [s for s in self._imu_since_opt if s[0] > t]
         if self.config.visual_pnp_enable:
-            self._refresh_keymap()
+            with self.times.stage("pnp_keymap_time"):
+                self._refresh_keymap()
+
+    def _trim_while_lost(self):
+        """Bound the samples while tracking is lost. The propagation
+        resumes from its cursor (no PnP or refresh resets it until the
+        initializer succeeds), and the initializer's anchor is one of the
+        tracker's frames: samples at or before both are never read
+        again."""
+        c = self._prop_cache
+        if c is None or not self.tracker_map.frames:
+            return
+        t = min(c[0], self.tracker_map.frames[0].t)
+        if self._imu_since_opt and self._imu_since_opt[0][0] <= t:
+            self._imu_since_opt = [s for s in self._imu_since_opt if s[0] > t]
 
     # ------------------------------------------------------------------
     # camera-rate visual PnP pose path
@@ -385,6 +411,8 @@ class VIOPipeline:
                 X[k] = p_w
                 valid[k] = True
         if valid.sum() < cfg.visual_pnp_min_landmarks:
+            self.times.count("pnp_skipped")
+            self.times.tag(frame.id, pnp="skipped")
             return
         q_wc = nputil.quat_mul(q_b, frame.q_bc)
         p_wc = p_b + nputil.quat_rotate(q_b, frame.p_bc)
@@ -404,8 +432,9 @@ class VIOPipeline:
         self._prop = dict(t=frame.t, q=q_b2, p=p_b2, v=v_b,
                           bg=s["bg"].copy(), ba=s["ba"].copy())
         self._prop_cache = None
-        self._imu_since_opt = [x for x in self._imu_since_opt if x[0] > frame.t]
         self.pnp_frames += 1
+        self.times.count("pnp_published")
+        self.times.tag(frame.id, pnp="published")
 
     # ------------------------------------------------------------------
     def predict_pose(self, t: float) -> Optional[OutputPose]:
@@ -432,6 +461,7 @@ class VIOPipeline:
         else:
             q, p, v, t_cur = s["q"], s["p"], s["v"], s["t"]
         bg, ba = s["bg"], s["ba"]
+        n = 0
         for (ti, w, a) in self._imu_since_opt:
             if ti <= t_cur or ti > t:
                 continue
@@ -440,6 +470,11 @@ class VIOPipeline:
             p = p + dt * v
             q = nputil.quat_normalize(nputil.quat_mul(q, nputil.expmap((w - bg) * dt)))
             t_cur = ti
+            n += 1
+        if n:
+            # the poses published between frames are counted with the
+            # newest frame processed, whose anchor they propagate
+            self.times.count("imu_samples_replayed", n, frame_id=self._last_frame_id)
         self._prop_cache = (t_cur, q, p, v)
         return t_cur, q, p, v
 

@@ -21,7 +21,9 @@
 
 Under a `Config.solver_time_limit` below 1e5 s every solve's iteration
 count is budgeted from its variant's measured time an iteration
-(`_note_solve`, `_budgeted_iterations`, `_budget_chained`).
+(`_note_solve`, `_budgeted_iterations`, `_budget_chained`); each solve
+that the budget cuts below `solver_iteration_limit` counts one
+`budget_clamped` in the trace record.
 
 With `Config.deferred_subframe_write` (the default) a solve's result is
 not read when the solve is dispatched: its write-back is queued with a
@@ -256,6 +258,14 @@ class SlidingWindowTracker:
         if fit < s_opts.iterations:
             return dataclasses.replace(s_opts, iterations=self._ladder_value(fit))
         return s_opts
+
+    def _count_clamped(self, *opts: SolveOptions) -> None:
+        """Record counter `budget_clamped`: +1 for each solve about to
+        run whose iteration count the budget cut below
+        solver_iteration_limit."""
+        n = sum(o.iterations < self.config.solver_iteration_limit for o in opts)
+        if n:
+            self.times.count("budget_clamped", n)
 
     def _wait_device(self, result) -> None:
         """The budget's one wait on the device: synchronize the result's
@@ -630,6 +640,7 @@ class SlidingWindowTracker:
         r_opts = self._budget_chained(
             "kf_chain", l_opts,
             SolveOptions(iterations=self._budgeted_iterations("refine")))
+        self._count_clamped(l_opts, r_opts)
         t0 = time.perf_counter()
         st1, st2, gates, tri_ok = solve_keyframe_chain(
             l_state, l_data, l_opts, state, data, r_opts, l_slot, s2, inject,
@@ -715,6 +726,7 @@ class SlidingWindowTracker:
         chain_key = "chained:" + variant
         l_opts = SolveOptions(iterations=self._budgeted_iterations("localize"))
         s_opts = self._budget_chained(chain_key, l_opts, s_opts)
+        self._count_clamped(l_opts, s_opts)
         return dict(l_state=l_state, l_data=l_data, l_opts=l_opts,
                     s_state=s_state, s_data=s_data, s_opts=s_opts, s2=s2,
                     variant=variant, chain_key=chain_key, kf=kf, saved=saved,
@@ -797,8 +809,9 @@ class SlidingWindowTracker:
         state back; with `defer_write` its read starts and
         _materialize_localize lands it."""
         state, data, meta, target, slot = self._prepare_localize()
-        st, _ = self._solve_timed("localize", state, data, SolveOptions(
-            iterations=self._budgeted_iterations("localize")))
+        opts = SolveOptions(iterations=self._budgeted_iterations("localize"))
+        self._count_clamped(opts)
+        st, _ = self._solve_timed("localize", state, data, opts)
         if defer_write:
             self._loc_result = (fetch_packed_start(
                 tuple(x[slot] for x in (st.q, st.p, st.v, st.bg, st.ba))), target)
@@ -845,8 +858,9 @@ class SlidingWindowTracker:
             self.marg = MargPrior.gauge_fix(self.K_slots, self.L_slots, state)
         data = data._replace(marg=self.marg, use_marg=torch.ones(
             (), dtype=torch.bool, device=self.device))
-        st, _ = self._solve_timed("refine", state, data, SolveOptions(
-            iterations=self._budgeted_iterations("refine")))
+        opts = SolveOptions(iterations=self._budgeted_iterations("refine"))
+        self._count_clamped(opts)
+        st, _ = self._solve_timed("refine", state, data, opts)
         fuv = np.stack([[f.K[0, 0], f.K[1, 1]] for f in frames]
                        + [[1.0, 1.0]] * (self.K_slots - len(frames)))
         gates = landmark_gates(st, data, torch.as_tensor(

@@ -11,14 +11,20 @@ memory:
 
 - spans: `frame` (`StageTimes.frame`, one a processed frame, with the
   program's frame id and a `kind` tag: init, track, subframe or
-  keyframe), every stage (`StageTimes.stage`) as a child of the span
-  open around it, and `lm_solve` (the solver's LM loop);
+  keyframe, and a `pnp` tag on the frames that run the camera-rate
+  PnP: published or skipped), every stage (`StageTimes.stage`) as a
+  child of the span open around it, and `lm_solve` (the solver's LM
+  loop);
 - counters, per frame and per innermost open span: `lm_iterations`,
-  `initializer_attempts` and `host_syncs`, each wait of the host on
-  the device counted once: the explicit waits at their call site
-  (`host_wait`), every other synchronizing operation through CUDA's
-  sync-debug mode, whose warnings the record routes into the counter
-  while it is on.
+  `initializer_attempts`, `pnp_published`, `pnp_skipped`,
+  `budget_clamped` (a solve that `solver_time_limit` cut), and
+  `host_syncs`, each wait of the host on the device counted once: the
+  explicit waits at their call site (`host_wait`), every other
+  synchronizing operation through CUDA's sync-debug mode, whose
+  warnings the record routes into the counter while it is on;
+  `imu_samples_replayed` (the samples a pose's IMU propagation walks)
+  goes to the newest frame processed, since the poses published
+  between frames are propagated outside any frame.
 
 Deep code without a `StageTimes` of its own (the solver, `utils/fetch`)
 reaches the record of the frame being processed through `active()` and
@@ -195,17 +201,21 @@ class StageTimes:
         if self._on and frame_id in self._frames:
             self._frames[frame_id].tags.update(tags)
 
-    def count(self, name: str, n: int = 1) -> None:
+    def count(self, name: str, n: int = 1, frame_id: Optional[int] = None) -> None:
         """Add `n` to counter `name` of the innermost open span and of
-        its frame."""
+        its frame; with `frame_id`, of that frame and of its innermost
+        open span, or of its `frame` span where none of it is open."""
         if not self._on:
             return
         stack = self._stack()
-        frame = stack[-1].frame if stack else None
-        if stack:
-            c = stack[-1].counters
-            c[name] = c.get(name, 0) + n
-        c = self._frame_counters.setdefault(frame, {})
+        span = stack[-1] if stack else None
+        if frame_id is None:
+            frame_id = None if span is None else span.frame
+        elif span is None or span.frame != frame_id:
+            span = self._frames.get(frame_id)
+        if span is not None:
+            span.counters[name] = span.counters.get(name, 0) + n
+        c = self._frame_counters.setdefault(frame_id, {})
         c[name] = c.get(name, 0) + n
 
     def export(self) -> dict:
