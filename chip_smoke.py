@@ -48,6 +48,13 @@
      autodiff composition) and its closed-form version, each output's
      max |Δ| within 1e-11 of its largest entry; two launches bit-equal,
      H exactly symmetric; timed beside the plain version;
+   - K4 preint_scan (`preintegration.integrate_batch`, the IMU
+     preintegration every window extraction and re-integration takes):
+     `io.synthetic.imu_intervals` at N=12 intervals of 132 steps in
+     buffers of 192 and N=11 of 33 in 128, float64, against the plain
+     loop, each field's max |Δ| within 1e-12 of its largest entry; two
+     launches bit-equal; timed beside the plain loop, with the latency
+     floor (steps x one step's device time, from a launch at steps=1);
 4. holds one IMU-PARSAC PnP call (256 points, 256 hypotheses, f64) on
    the card to itself (two calls from equally seeded generators,
    bit-equal) and to the CPU on the card's minimal samples (T 1e-9,
@@ -56,9 +63,10 @@
    geometry (752x480, focal 458, 500 landmarks, seed 3) through
    `api.XRSLAM` with IMU and images — once to warm up (20 frames), then
    timed with the kernel launch counts reset just before it; fails
-   unless all three kernels launched, the fused K2 entry among them, K1's
-   fused entry once per tracked frame pair and its entry 1 never, no
-   image-wide Scharr call, >= 60 frames tracked and ATE <= 0.25 m;
+   unless every kernel launched, the fused K2 entry among them, K1's
+   fused entry once per tracked frame pair and its entry 1 never, K4
+   once per `integrate_batch` call, no image-wide Scharr call, >= 60
+   frames tracked and ATE <= 0.25 m;
    then holds the four analytic frame Jacobians
    (`estimation.validator.analytic_frame_jacobians`: the closed-form
    reprojection Jacobian of K2's fused entry, preintegration, rotation,
@@ -371,6 +379,13 @@ FACTOR_FLOPS = 490
 # Gram terms of its four 15x15 blocks and two 15-vectors (15 multiply-adds
 # each), the unweighted factor (~1,000).
 PREINT_FLOPS_PER_PAIR = 2 * 15 * 31 * 15 + 2 * 15 * (4 * 225 + 2 * 15) + 1000
+# K4 a step of an interval: the sample's dq, R(dq) and Jr (~150), the
+# quaternion chain (~60), the blocks of A, B and B W B^T (~460), the 81 +
+# 81 entries of A P and (A P) A^T + B W B^T and the bias Jacobians (~1,700).
+PREINT_SCAN_FLOPS_PER_STEP = 2400
+# (N intervals, capacity S, steps): a keyframe extraction of the mobile
+# profile, a subwindow's
+PREINT_SCAN_SHAPES = ((12, 192, 132), (11, 128, 33))
 KLT_FLOPS_PER_TAP = 12
 KLT_WINDOW_FLOPS = 21
 KLT_SCHARR_FLOPS = 24
@@ -976,6 +991,60 @@ def preint_gram_phase(dev) -> dict:
     return res
 
 
+def preint_scan_phase(dev) -> dict:
+    """K4 at `PREINT_SCAN_SHAPES` in float64 against the plain loop;
+    device time (20 calls in a CUDA graph, without the square-root
+    information), wrapper time (the call as `integrate_batch` makes it),
+    the plain loop's, and the latency floor."""
+    import torch
+
+    from xrslam_tpu_torch.imu import preintegration as pre
+    from xrslam_tpu_torch.io.synthetic import imu_intervals, imu_noise
+
+    res = {}
+    for N, S, steps in PREINT_SCAN_SHAPES:
+        args = imu_intervals(N, S, steps, seed=N * 1000 + steps, device=dev)
+        noise = imu_noise(N, device=dev)
+
+        def kernel(steps=steps, sqrt_inv=True):
+            return pre.integrate_batch_cuda(*args[:6], noise, args[6], steps=steps,
+                                            compute_sqrt_inv=sqrt_inv)
+
+        def plain():
+            return pre.integrate_batch_plain(*args[:6], noise, args[6], steps=steps)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        rel = {}
+        for name in pre.PreintDelta._fields:
+            if name == "sqrt_inv_cov":
+                continue
+            o, e = getattr(out, name), getattr(ref, name)
+            rel[name] = float((o - e).abs().max() / e.abs().max().clamp_min(1e-300))
+        if not max(rel.values()) <= 1e-12:
+            fail(f"K4 N={N} S={S} steps={steps} against the plain loop: max |Δ| / "
+                 f"max |ref| {rel}")
+        check_repeat(f"K4 N={N} S={S} steps={steps}", kernel)
+        one = {"max_rel_err": max(rel.values()), "max_rel_err_by_field": rel,
+               "ms": (cuda_ms(kernel, reps=100) + cuda_ms(kernel, reps=100)) / 2,
+               "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+               "device_ms": device_ms(lambda: kernel(sqrt_inv=False)),
+               "device_ms_one_step": device_ms(lambda: kernel(steps=1, sqrt_inv=False))}
+        step_us = (one["device_ms"] - one["device_ms_one_step"]) * 1e3 / (steps - 1)
+        one["step_us"] = step_us
+        one["latency_floor_us"] = steps * step_us
+        one.update(bound(nbytes(*args, *noise, *out[:5], *out[6:]),
+                         N * steps * PREINT_SCAN_FLOPS_PER_STEP, 8))
+        res[f"N{N}_S{S}_steps{steps}"] = one
+        print(f"K4 preint_scan N={N} S={S} steps={steps} f64: wrapper {one['ms']:.4f} ms "
+              f"(device alone {one['device_ms']:.4f}; at 1 step "
+              f"{one['device_ms_one_step']:.4f}), plain loop {one['plain_ms']:.3f} ms, "
+              f"{step_us:.3f} us a step, latency floor {one['latency_floor_us']:.1f} us, "
+              f"bound {one['bound_ms'] * 1e3:.3f} us by {one['bound_by']}; max |Δ| / "
+              f"max |ref| {one['max_rel_err']:.2e}, repeat bit-equal", flush=True)
+    return res
+
+
 def factor_gram_bound(state, data, out) -> dict:
     """K2 entry 2's bound on one window's inputs: each input read once
     and each output written once; the factor and Gram operations of the
@@ -1055,12 +1124,14 @@ def counted_drive(slam, seq, dev, max_frames=None, poisson_args=None) -> dict:
     from xrslam_tpu_torch.frontend import image as img_ops
     from xrslam_tpu_torch.frontend import klt
     from xrslam_tpu_torch.geometry import essential
+    from xrslam_tpu_torch.imu import preintegration as pre
     from xrslam_tpu_torch.kernels import build
     from xrslam_tpu_torch.tools.make_dataset import timed_run
 
     build.reset_launch_counts()
     native.reset_counts()
     with counting(klt, "track_keypoints") as pairs, \
+            counting(pre, "integrate_batch") as integrations, \
             counting(img_ops, "scharr") as scharr_calls, \
             counting(essential, "nullspace_basis") as bases, \
             recording(native, "poisson_filter") as poisson:
@@ -1068,6 +1139,7 @@ def counted_drive(slam, seq, dev, max_frames=None, poisson_args=None) -> dict:
     res["launches"] = {k.name: k.launches for k in build.KERNELS}
     res["entry_launches"] = {k.name: dict(k.entry_launches) for k in build.KERNELS}
     res["frame_pairs_tracked"] = pairs[0]
+    res["integrate_batch_calls"] = integrations[0]
     res["scharr_calls"] = scharr_calls[0]
     res["nullspace_calls"] = bases[0]
     res["native_calls"] = dict(native.CALLS)
@@ -1077,7 +1149,7 @@ def counted_drive(slam, seq, dev, max_frames=None, poisson_args=None) -> dict:
 
 
 def check_image_path(res: dict, what: str, min_tracked: int = 60) -> None:
-    """Fail unless an image drive went through all three kernels: K2's fused
+    """Fail unless an image drive went through every kernel: K2's fused
     entry, K1's fused entry once per tracked frame pair, K1's entry 1
     and the image-wide Scharr never; and >= `min_tracked` frames
     tracked."""
@@ -1137,6 +1209,9 @@ def drive_phase(dev, seq) -> dict:
     print("stage means (ms): " + json.dumps(
         {k: round(v, 2) for k, v in res["stage_ms"].items()}), flush=True)
     check_image_path(res, "the main path")
+    if res["launches"]["preint_scan"] != res["integrate_batch_calls"]:
+        fail(f"the main path: K4 launched {res['launches']['preint_scan']} times for "
+             f"{res['integrate_batch_calls']} integrate_batch calls")
     check_ate(res, "the main path")
     return res, slam
 
@@ -3431,6 +3506,7 @@ def main(argv=None) -> None:
     k2 = phase("reproj_factor_gram", factor_gram_phase, dev)
     k2_batch = phase("reproj_factor_gram_batch", factor_gram_batch_phase, dev)
     k3 = phase("preint_factor_gram", preint_gram_phase, dev)
+    k4 = phase("preint_scan", preint_scan_phase, dev)
     repeat = phase("parsac_repeat", parsac_repeat_phase, dev)
 
     from xrslam_tpu_torch.tools.make_dataset import render_sequence
@@ -3568,7 +3644,8 @@ def main(argv=None) -> None:
                        "k2_reproj_gram": k2_gram,
                        "k2_reproj_factor_gram": k2,
                        "k2_reproj_factor_gram_batched": k2_batch,
-                       "k3_preint_factor_gram": k3, "drive": drive,
+                       "k3_preint_factor_gram": k3, "k4_preint_scan": k4,
+                       "drive": drive,
                        "native": nat, "capi": capi, "ros_node": ros, "multiseq": mseq,
                        "parsac_repeat": repeat, "parsac_drive": parsac_drive,
                        "visual_pnp_drive": pnp_drive, "mobile_drive": mobile,

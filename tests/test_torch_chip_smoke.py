@@ -17,7 +17,8 @@ wrappers do, and torch's sync debug mode (CUDA only) a no-op: every
 check of the two phases runs here, at the rehearsal's frame counts.
 
 K3's phase runs at its sizes with the wrapper replaced by the
-closed-form plain version and the CUDA timers stubbed.
+closed-form plain version and the CUDA timers stubbed; K4's with the
+wrapper replaced by the plain loop.
 
 The phases of the batched K2 entry, the native runtime, the C ABI and
 the ROS node run on the CPU the same way: the batched entry at K_sub=11,
@@ -56,6 +57,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from xrslam_tpu_torch.estimation import gram  # noqa: E402
 from xrslam_tpu_torch.frontend import klt  # noqa: E402
+from xrslam_tpu_torch.imu import preintegration as pre  # noqa: E402
 from xrslam_tpu_torch.io.synthetic import perturbed_demo_window  # noqa: E402
 from xrslam_tpu_torch.kernels import build  # noqa: E402
 
@@ -162,9 +164,14 @@ def counting_plain_kernels(monkeypatch):
         build.PREINT_GRAM.count(windows=state.q.shape[0] if state.q.dim() == 3 else 1)
         return gram.preint_factor_gram_plain(state, data, mask, H, b)
 
+    def k4(ts, *args, **kw):
+        build.PREINT_SCAN.count(windows=int(ts[..., 0].numel()))
+        return pre.integrate_batch_plain(ts, *args, **kw)
+
     monkeypatch.setattr(klt, "track_keypoints", k1)
     monkeypatch.setattr(gram, "reproj_factor_gram", k2)
     monkeypatch.setattr(gram, "preint_factor_gram", k3)
+    monkeypatch.setattr(pre, "integrate_batch", k4)
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a, **k: None)
 
 
@@ -390,6 +397,29 @@ def test_preint_gram_phase_rehearsal(monkeypatch):
         assert one["ms"] == one["plain_ms"] == 2.0 and one["device_ms"] == 0.5
         assert one["bound_by"] == "bytes" and one["bound_ms"] > 0
     assert res["K12"]["flops"] == 11 * chip_smoke.PREINT_FLOPS_PER_PAIR
+
+
+def test_preint_scan_phase_rehearsal(monkeypatch):
+    """K4's phase at its two shapes with the wrapper replaced by the
+    plain loop: its agreement and repeat checks, its timing arithmetic
+    (the device timer reads 0.5 ms at the shape's steps and 0.1 ms at
+    one step) and its bound."""
+    times = iter([0.5, 0.1] * len(chip_smoke.PREINT_SCAN_SHAPES))
+    monkeypatch.setattr(pre, "integrate_batch_cuda", pre.integrate_batch_plain)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=20, warmup=3: (fn(), 2.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn, calls=20, reps=10: (fn(), next(times))[1])
+    res = chip_smoke.preint_scan_phase(torch.device("cpu"))
+    assert set(res) == {"N12_S192_steps132", "N11_S128_steps33"}
+    for (N, S, steps), one in zip(chip_smoke.PREINT_SCAN_SHAPES, res.values()):
+        assert one["max_rel_err"] == 0.0
+        assert one["ms"] == one["plain_ms"] == 2.0
+        assert one["device_ms"] == 0.5 and one["device_ms_one_step"] == 0.1
+        assert one["latency_floor_us"] == pytest.approx(steps * 400.0 / (steps - 1))
+        assert one["flops"] == N * steps * chip_smoke.PREINT_SCAN_FLOPS_PER_STEP
+        assert one == dict(one, **chip_smoke.bound(one["bytes"], one["flops"], 8))
+        assert one["bytes"] > N * S * 7 * 8
 
 
 def test_native_and_ros_phases_rehearsal(monkeypatch, tmp_path):

@@ -165,17 +165,7 @@ def grid(K: int, L: int):
     return max(1, min(TARGET_CTAS // K, (L + 3) // 4)), K
 
 
-def _check(name: str, x, shape, dtype, device) -> torch.Tensor:
-    """Shape, dtype and device of one kernel argument; returns it
-    contiguous and 16-byte aligned (a copy only if it is not)."""
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(x.shape)}")
-    if not x.is_cuda or x.device != device:
-        raise ValueError(f"{name} must be on {device}, got {x.device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} dtype {x.dtype} != {dtype}")
-    x = x.contiguous()
-    return x.clone() if x.data_ptr() % 16 else x
+_check = kbuild.check_arg
 
 
 def _check_frames(K: int, dtype, device) -> None:
@@ -272,12 +262,7 @@ def reproj_factor_gram_cuda(state: WindowState, data: WindowData):
     return P, b6, Hll, Hfl6, bl, cost
 
 
-def _dispatch(x: torch.Tensor, what: str, cuda_fn, plain_fn):
-    if x.is_cuda:
-        return cuda_fn
-    if x.device.type != "cpu":
-        raise ValueError(f"{what} runs on CPU or CUDA, got {x.device}")
-    return plain_fn
+_dispatch = kbuild.dispatch
 
 
 def reproj_gram(r, Jt, Jr6, Jd, R1):

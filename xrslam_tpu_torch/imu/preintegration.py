@@ -2,11 +2,16 @@
 Jacobians (port of `xrslam_tpu/imu/preintegration.py`).
 
 Error-state order (q, p, v, bg, ba) at offsets (0, 3, 6, 9, 12).
-Sample buffers have a fixed capacity padded with dt == 0 entries; the
-JAX `lax.scan` over samples becomes a Python loop that stops after the
-last valid sample of the batch (later padded steps are no-ops). Every
+Sample buffers have a fixed capacity padded with dt == 0 entries. Every
 function takes leading batch dimensions, so one call integrates all of
 a window's intervals at once.
+
+`integrate_batch` is kernel K4 of the port (csrc/preint_scan.cu): the
+JAX `lax.scan` over the samples is `integrate_batch_plain`, a Python
+loop that stops after the last valid sample of the batch (later padded
+steps keep dt = 0), taken for CPU tensors; `integrate_batch_cuda` runs
+the same recurrence for CUDA tensors in one launch a call and raises on
+what the kernel does not take.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from ..geometry import lie
+from ..kernels import build as kbuild
 
 GRAVITY_NOMINAL = 9.80665
 GRAVITY = np.array([0.0, 0.0, -GRAVITY_NOMINAL])
@@ -150,12 +156,13 @@ def sample_dts(ts: torch.Tensor, t_end, count) -> torch.Tensor:
     return torch.where(idx < count, torch.clamp(dts, min=0.0), 0.0)
 
 
-def integrate_batch(ts, ws, accs, t_end, bg, ba, noise: ImuNoise, count,
-                    compute_sqrt_inv: bool = True,
-                    steps: Optional[int] = None) -> PreintDelta:
-    """Integrate K fixed-capacity buffers at once: ts (K,S), ws/accs
-    (K,S,3), t_end (K,), bg/ba (K,3), count (K,). `steps` bounds the
-    loop (default: the largest count, read once from `count`)."""
+def integrate_batch_plain(ts, ws, accs, t_end, bg, ba, noise: ImuNoise, count,
+                          compute_sqrt_inv: bool = True,
+                          steps: Optional[int] = None) -> PreintDelta:
+    """K4 in plain PyTorch: integrate K fixed-capacity buffers at once:
+    ts (K,S), ws/accs (K,S,3), t_end (K,), bg/ba (K,3), count (K,).
+    `steps` bounds the loop (default: the largest count, read once from
+    `count`)."""
     dts = sample_dts(ts, t_end, count)
     if steps is None:
         steps = int(torch.as_tensor(count).max()) if ts.shape[-1] else 0
@@ -169,6 +176,64 @@ def integrate_batch(ts, ws, accs, t_end, bg, ba, noise: ImuNoise, count,
         delta = delta._replace(sqrt_inv_cov=torch.where(
             ok, sqrt_inv_from_cov(delta.cov), 0.0))
     return delta
+
+
+# an interval's fields in the kernel's output, in PreintDelta's order
+_FIELD_SHAPES = ((), (4,), (3,), (3,), (15, 15), (15, 15),
+                 (3, 3), (3, 3), (3, 3), (3, 3), (3, 3))
+
+
+def integrate_batch_cuda(ts, ws, accs, t_end, bg, ba, noise: ImuNoise, count,
+                         compute_sqrt_inv: bool = True,
+                         steps: Optional[int] = None) -> PreintDelta:
+    """K4 on the card: `integrate_batch_plain`'s recurrence for every
+    interval of the batch (any leading dimensions) in one launch; the
+    square-root information after it in PyTorch. `count` is an int64
+    tensor on the card."""
+    batch, S = tuple(ts.shape[:-1]), ts.shape[-1]
+    dt, dev = ws.dtype, ws.device
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"preint_scan kernel takes float32/float64, got {dt}")
+    if dev.type != "cuda":
+        raise ValueError(f"the preint_scan kernel's tensors must be on a CUDA "
+                         f"device, got {dev}")
+    if steps is None:
+        steps = int(torch.as_tensor(count).max()) if S else 0
+    steps = max(0, min(int(steps), S))
+    args = [kbuild.check_arg(name, x, shape, dt, dev) for name, x, shape in (
+        ("ts", ts, batch + (S,)), ("ws", ws, batch + (S, 3)),
+        ("accs", accs, batch + (S, 3)), ("t_end", t_end, batch),
+        ("bg", bg, batch + (3,)), ("ba", ba, batch + (3,)))]
+    args.append(kbuild.check_arg("count", count, batch, torch.int64, dev))
+    args += [kbuild.check_arg(f"noise.{name}", x, (3, 3), dt, dev)
+             for name, x in zip(noise._fields, noise)]
+    N = int(torch.Size(batch).numel())
+    sizes = [N * int(torch.Size(s).numel()) for s in _FIELD_SHAPES]
+    out = torch.empty((sum(sizes),), dtype=dt, device=dev)
+    if N:
+        err = kbuild.PREINT_SCAN.fn()(
+            *(x.data_ptr() for x in args), out.data_ptr(), N, S, steps,
+            1 if dt == torch.float64 else 0, torch.cuda.current_stream(dev).cuda_stream)
+        kbuild.check(err, "integrate_batch")
+        kbuild.PREINT_SCAN.count(windows=N)
+    delta = PreintDelta(*(x.view(batch + s) for x, s in
+                          zip(torch.split(out, sizes), _FIELD_SHAPES)))
+    if compute_sqrt_inv:
+        ok = (args[6] > 0)[..., None, None]
+        delta = delta._replace(sqrt_inv_cov=torch.where(
+            ok, sqrt_inv_from_cov(delta.cov), 0.0))
+    return delta
+
+
+def integrate_batch(ts, ws, accs, t_end, bg, ba, noise: ImuNoise, count,
+                    compute_sqrt_inv: bool = True,
+                    steps: Optional[int] = None) -> PreintDelta:
+    """K4 (`integrate_batch_plain`'s arguments and result): the plain
+    loop for CPU tensors, the CUDA kernel for CUDA tensors."""
+    fn = kbuild.dispatch(ws, "integrate_batch", integrate_batch_cuda,
+                         integrate_batch_plain)
+    return fn(ts, ws, accs, t_end, bg, ba, noise, count,
+              compute_sqrt_inv=compute_sqrt_inv, steps=steps)
 
 
 def integrate(ts, ws, accs, t_end, bg, ba, noise: ImuNoise, count=None,

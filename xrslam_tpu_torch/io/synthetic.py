@@ -2,8 +2,10 @@
 ideal IMU, a rigidly-moving object and the projection of both into the
 camera (port of `circle_scene`, `wave_scene`, `euler_consistent`,
 `moving_object`, `bearings_of_points`, `bearings_of`, `window_problem`
-and `demo_window_problem` from `xrslam_tpu/io/synthetic.py`), and
-`reproj_window`, a seeded window for the reprojection factors alone.
+and `demo_window_problem` from `xrslam_tpu/io/synthetic.py`),
+`reproj_window`, a seeded window for the reprojection factors alone, and
+`imu_intervals` / `imu_noise`, seeded IMU buffers for the preintegration
+(kernel K4) alone.
 
 Velocity, acceleration and body rate come from `torch.func.jacfwd` of
 the analytic pose, as the JAX package takes them from `jax.jacfwd`.
@@ -421,6 +423,56 @@ def perturbed_demo_window(K: int, L: int, seed: int, device=None):
     invd = state.inv_depth * torch.as_tensor(1.0 + 0.02 * rng.normal(size=L))
     state = state._replace(q=q, p=p, v=v, bg=bg, ba=ba, inv_depth=invd)
     return tree_map(lambda x: x.to(device), state), tree_map(lambda x: x.to(device), data)
+
+
+def imu_intervals(N: int, S: int, steps: int, seed: int, dtype=torch.float64,
+                  device=None):
+    """(ts, ws, accs, t_end, bg, ba, count) of N IMU intervals in
+    buffers of capacity S, from a numpy seed, as `integrate_batch` takes
+    them: 200 Hz samples on a jittered clock, zero past each count (the
+    window builder's padding), t_end 3.5 ms after the last sample.
+    Intervals take turns (one kind when N = 1): count = steps at ~0.6
+    rad/s; count = steps // 2 (steps with dt = 0 after it); count = 0;
+    count = steps at ~0.02 rad/s, whose rotation a step stays in the
+    small-angle branches of `lie.expmap` and `lie.right_jacobian`;
+    count = min(S, steps + 5) at ~3 rad/s."""
+    rng = np.random.default_rng(seed)
+    ts = np.zeros((N, S))
+    ws = np.zeros((N, S, 3))
+    accs = np.zeros((N, S, 3))
+    t_end = np.zeros(N)
+    count = np.zeros(N, dtype=np.int64)
+    for n in range(N):
+        kind = n % 5 if N > 1 else 0
+        c = (steps, max(1, steps // 2), 0, steps, min(S, steps + 5))[kind]
+        rate = (0.6, 0.6, 0.6, 0.02, 3.0)[kind]
+        ts[n, :c] = rng.uniform(0.0, 10.0) + np.cumsum(0.005 + rng.uniform(-2e-4, 2e-4, c))
+        ws[n, :c] = rng.normal(0.0, rate, (c, 3))
+        accs[n, :c] = rng.normal(0.0, 1.0, (c, 3)) + [0.0, 0.0, 9.81]
+        t_end[n] = ts[n, c - 1] + 0.0035 if c else 0.0
+        count[n] = c
+    bg = rng.normal(0.0, 0.01, (N, 3))
+    ba = rng.normal(0.0, 0.05, (N, 3))
+
+    def T(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return (T(ts), T(ws), T(accs), T(t_end), T(bg), T(ba),
+            torch.as_tensor(count, device=device))
+
+
+def imu_noise(seed: int = 0, dtype=torch.float64, device=None,
+              scale: float = 1.0) -> pre.ImuNoise:
+    """Full symmetric positive definite noise covariances of EuRoC-like
+    sizes (times `scale`), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def spd(s):
+        a = rng.normal(size=(3, 3))
+        return torch.as_tensor(scale * s * (a @ a.T / 3 + np.eye(3)), dtype=dtype,
+                               device=device)
+
+    return pre.ImuNoise(spd(3e-8), spd(4e-6), spd(2e-10), spd(9e-8))
 
 
 def scattered_slots(pyr0, pts, init, ok, seed: int = 0):

@@ -40,6 +40,7 @@ SIGNATURES = {
     "reproj_gram_launch": [_P] * 14 + [_I, _I, _I, _I, _P],
     "reproj_factor_gram_launch": [_P] * 19 + [_I, _I, _I, _I, _I, _P],
     "preint_gram_launch": [_P] * 23 + [_I, _I, _I, _P],
+    "preint_scan_launch": [_P] * 12 + [_I] * 4 + [_P],
 }
 
 
@@ -85,7 +86,11 @@ PREINT_GRAM = Kernel("preint_gram", ("preint_gram_launch",),
                      "xrslam_tpu_torch/csrc/preint_gram.cu",
                      "no Pallas kernel: the autodiff composition "
                      "xrslam_tpu/estimation/factors.py:179")
-KERNELS = (KLT_LEVEL, REPROJ_GRAM, PREINT_GRAM)
+PREINT_SCAN = Kernel("preint_scan", ("preint_scan_launch",),
+                     "xrslam_tpu_torch/csrc/preint_scan.cu",
+                     "no Pallas kernel: the lax.scan over the samples "
+                     "xrslam_tpu/imu/preintegration.py:191")
+KERNELS = (KLT_LEVEL, REPROJ_GRAM, PREINT_GRAM, PREINT_SCAN)
 
 
 def reset_launch_counts() -> None:
@@ -182,6 +187,29 @@ def load_library() -> ctypes.CDLL:
         lib.xr_error_string.restype = ctypes.c_char_p
         _LIB.lib = lib
     return _LIB.lib
+
+
+def check_arg(name: str, x, shape, dtype, device):
+    """Shape, dtype and device of one kernel argument; returns it
+    contiguous and 16-byte aligned (a copy only if it is not)."""
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_cuda or x.device != device:
+        raise ValueError(f"{name} must be on {device}, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} dtype {x.dtype} != {dtype}")
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def dispatch(x, what: str, cuda_fn, plain_fn):
+    """A kernel's route for tensors on x's device: the plain version on
+    the CPU, the kernel's wrapper on a CUDA device."""
+    if x.is_cuda:
+        return cuda_fn
+    if x.device.type != "cpu":
+        raise ValueError(f"{what} runs on CPU or CUDA, got {x.device}")
+    return plain_fn
 
 
 def check(err: int, what: str) -> None:
